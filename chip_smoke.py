@@ -1,0 +1,466 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100).
+
+    python3 chip_smoke.py
+
+1. builds the five CUDA kernels of the detection scan from
+   ``template_speech_recognition_tpu_torch/csrc`` (one nvcc each, all
+   started together);
+2. calls each kernel's wrapper on the card at the shapes the scan gives
+   it (8 utterances of 30 s: T_pad = 3072, F = 256, D = 2048, K = 1024
+   templates of L = 32, nfft = 159) and holds the result against its
+   plain PyTorch version on the same inputs, with the tolerance stated
+   beside each check; times kernel, plain version and one library call
+   with CUDA events (median of 10 after 2 warm-ups) and computes each
+   kernel's bound (the larger of bytes / 3.35 TB/s and operations / the
+   peak rate of their type);
+   It also runs every kernel once at small ragged shapes (partial
+   tiles, odd nfft, an utterance with no valid row, ties and -0.0) and
+   holds it against its plain version;
+3. drives the scan itself, ``detect_corpus_stream``, at full width over
+   19 utterances of 30 s (two batches of 8 and a tail of 3 padded to
+   4, whose padding row has no valid frame), with every launch count
+   set to 0 just before and read just after, and holds its detections
+   against the same scan on the plain versions.
+
+Any failed check exits non-zero without printing the result line.  The
+last three lines are the kernels JSON, the card's name and power
+limit, and ``{"ok": true, "device": {...}}``.  Needs one CUDA device;
+imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+SEED = 0
+B, SECONDS, N_UTT = 8, 30.0, 19
+K, L = 1024, 32
+HBM_BPS = 3.35e12          # H100 SXM device memory, bytes/s
+FP32_FLOPS = 67e12         # fp32 outside the tensor cores
+BF16_FLOPS = 989e12        # bf16 tensor cores, dense
+
+
+class CheckFailed(Exception):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise CheckFailed(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(torch, fn, reps=10, warm=2) -> float:
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def bound_ms(nbytes: float, ops: float, rate: float):
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = ops / rate * 1e3 if ops else 0.0
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+class Corpus:
+    """N_UTT utterances of exactly SECONDS s cut from the synthetic
+    fixture corpus (oracle/fixtures.py), so every one lands in the
+    491,520-sample bucket (T_pad = 3072)."""
+
+    def __init__(self, seed: int):
+        from oracle.fixtures import make_synthetic_corpus
+
+        self.sample_rate = 16000
+        n = int(SECONDS * self.sample_rate)
+        base = make_synthetic_corpus(
+            num_utterances=N_UTT, phones_per_utterance=180, seed=seed
+        )
+        self.utts = []
+        for u in base.utterances:
+            check(len(u.waveform) >= n, "synthetic utterance shorter than 30 s")
+            phones = [(p, s, e) for (p, s, e) in u.phones if e <= n]
+            self.utts.append((u.utt_id, np.ascontiguousarray(u.waveform[:n]), phones))
+
+    def iter_utterances(self):
+        yield from self.utts
+
+    def head(self, n: int) -> "Corpus":
+        out = object.__new__(Corpus)
+        out.sample_rate, out.utts = self.sample_rate, self.utts[:n]
+        return out
+
+
+def check_planes(torch, frames, nfft, got, want, name):
+    """Kernel 1 against its plain version.  True fp32 -> scaled error
+    (max |error| / max |plain|) <= 1e-5 on the cells whose four
+    spectrum inputs have a power >= 1e-2 (four decades above LOG_EPS),
+    and |error| <= 1e-3 everywhere: next to the floor the log amplifies
+    the fp32 summation order.  Returns (scaled, max |error|, share of
+    well-conditioned cells)."""
+    from template_speech_recognition_tpu_torch.ops.dft import dft_matrices
+
+    f = nfft // 2
+    cos_m, sin_m = dft_matrices(frames.shape[1], nfft, frames.device)
+    x64 = frames.double()
+    okp = ((x64 @ cos_m.double()) ** 2 + (x64 @ sin_m.double()) ** 2) >= 1e-2
+    okn = torch.cat([okp[1:], okp[-1:]])
+    ok = okp[:, :f] & okp[:, 1 : f + 1] & okn[:, :f] & okn[:, 1 : f + 1]
+    diff = (got - want).abs()
+    scaled = float(diff[:, ok].max() / want.abs().max())
+    err = float(diff.max())
+    share = float(ok.float().mean())
+    check(share > 0.5, f"{name}: too few well-conditioned cells ({share})")
+    check(scaled <= 1e-5, f"{name}: scaled error {scaled} > 1e-5")
+    check(err <= 1e-3, f"{name}: max error {err} > 1e-3")
+    return scaled, err, share
+
+
+def small_shape_checks(torch, dev, k1, k2, k3, k4, k5, fp, fs):
+    """Each kernel once at small ragged shapes (the CPU tests' sizes:
+    nfft 256 -> F = 128, D = 1024, K = 128, L = 8 -> nfft 39, hop 32),
+    against its plain version on the same inputs."""
+    rng = np.random.default_rng(SEED + 1)
+    frames = torch.from_numpy(
+        rng.standard_normal((4 * 128, 400)).astype(np.float32)).to(dev)
+    check_planes(torch, frames, 256, k1.edge_response_planes(frames, 256),
+                 k1.edge_response_planes_plain(frames, 256), "frontend_planes (small)")
+
+    planes = rng.standard_normal((4, 4, 256, 128)).astype(np.float32)
+    planes[:, :, :85] = np.round(planes[:, :, :85] * 4) / 4     # ties
+    planes[:, :, 5, :7] = -0.0
+    planes = torch.from_numpy(planes).to(dev)
+    valid = torch.tensor([256, 128, 7, 0], dtype=torch.int32, device=dev)
+    for q, rf, rt in ((0.98, 1, 1), (0.3, 2, 0)):
+        need = fp._dual_ranks(valid, 128, q)
+        fk, kk = k2.select_binspread(planes, need, valid, rf, rt)
+        fr, kr = k2.select_binspread_plain(planes, need, valid, rf, rt)
+        check(bool(torch.equal(fk, fr)) and bool(torch.equal(kk, kr)),
+              f"select_binspread (small, q={q}): not bitwise")
+
+    b, t, d, k, nfft, hop = 2, 250, 1024, 128, 39, 32
+    nblk = -(-(t - 8 + 1) // hop)
+    x = torch.from_numpy(rng.random((b, t, d)) < 0.15).to(dev, torch.bfloat16)
+    cm, sm = fs._dft_mats(nfft, torch.bfloat16, dev)
+    g = torch.cat([cm, -sm], dim=1).contiguous()
+    tol = 2.0 ** -7
+
+    def close(a, r, rel, name):
+        err = float((a.float() - r.float()).abs().max())
+        check(err <= rel * float(r.float().abs().max()), f"{name} (small): {err}")
+
+    for a, r in zip(k3.fft_block_dft(x, g, nfft, hop, nblk),
+                    k3.fft_block_dft_plain(x, g, nfft, hop, nblk)):
+        close(a, r, tol, "fft_block_dft")
+    bins, m = nfft // 2 + 1, b * nblk
+    xr = torch.randn(bins, b, nblk, d, device=dev).to(torch.bfloat16)
+    xi = torch.randn(bins, b, nblk, d, device=dev).to(torch.bfloat16)
+    w2 = torch.randn(bins, 2 * d, k, device=dev).to(torch.bfloat16)
+    close(k4.fft_binmm(xr, xi, w2), k4.fft_binmm_plain(xr, xi, w2), tol, "fft_binmm")
+    ycat = torch.randn(2 * bins, m * k, device=dev).to(torch.bfloat16)
+    icm, ism = fs._idft_mats(nfft, hop, torch.bfloat16, dev)
+    imat = torch.cat([icm, -ism], dim=0).contiguous()
+    c = torch.randn(k, device=dev)
+    close(k5.fft_idft(ycat, imat, c, nblk), k5.fft_idft_plain(ycat, imat, c, nblk),
+          1e-5, "fft_idft")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    try:
+        import template_speech_recognition_tpu_torch  # noqa: F401
+    except ImportError as exc:
+        print(f"chip_smoke: the port is not importable here: {exc}", file=sys.stderr)
+        return 2
+    from template_speech_recognition_tpu_torch import config as C
+    from template_speech_recognition_tpu_torch.convert import bank_from_numpy
+    from template_speech_recognition_tpu_torch.detect import fft_scorer as fs
+    from template_speech_recognition_tpu_torch.frontend import planes as fp
+    from template_speech_recognition_tpu_torch.ops import _cuda
+    from template_speech_recognition_tpu_torch.ops import (
+        fft_binmm_kernel as k4,
+        fft_dft_kernel as k3,
+        fft_idft_kernel as k5,
+        frontend_kernel as k1,
+        selbin_kernel as k2,
+    )
+    from template_speech_recognition_tpu_torch.ops.dft import dft_matrices
+    from template_speech_recognition_tpu_torch.ops.layout import filters_to_flat
+    from template_speech_recognition_tpu_torch.scan import (
+        bucket_length,
+        detect_corpus_stream,
+    )
+
+    card = card_line()
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    def say(msg):
+        print(f"[{card}] {msg}", flush=True)
+
+    # ---- build ---------------------------------------------------------
+    t0 = time.perf_counter()
+    logs = _cuda.build(["frontend_planes", "select_binspread", "fft_gemm"])
+    say(f"build: {time.perf_counter() - t0:.1f} s for {sorted(logs) or 'cached'}")
+    for stem, log in sorted(logs.items()):
+        for line in log.splitlines():
+            if "Used" in line or ("spill" in line and " 0 bytes spill" not in line):
+                say(f"ptxas {stem}: {line.strip()}")
+
+    # ---- inputs at the scan's shapes ------------------------------------
+    cfg = C.PipelineConfig()
+    fcfg = cfg.frontend
+    corpus = Corpus(SEED)
+    rng = np.random.default_rng(SEED)
+    templates = rng.uniform(0.01, 0.99, (K, L, fcfg.feature_freqs, 8)).astype(np.float32)
+    background = rng.uniform(0.01, 0.99, (fcfg.feature_freqs, 8)).astype(np.float32)
+    bank = bank_from_numpy(templates, background, [f"k{i}" for i in range(K)], dev)
+    wf, cf = bank.llr()
+    fbank = fs.build_fft_bank(filters_to_flat(wf), cf, mm_dtype=torch.bfloat16)
+    fbank32 = fs.build_fft_bank(filters_to_flat(wf), cf, mm_dtype=torch.float32)
+    check(fbank.nfft == fs.pick_nfft(L, K) == 159, f"nfft {fbank.nfft}")
+
+    pad = bucket_length(int(SECONDS * corpus.sample_rate))
+    wavs = torch.zeros((B, pad), dtype=torch.float32)
+    for i, (_u, w, _p) in enumerate(corpus.utts[:B]):
+        wavs[i, : len(w)] = torch.from_numpy(w)
+    wavs = wavs.to(dev)
+    nvalid = torch.full((B,), int(SECONDS * corpus.sample_rate), dtype=torch.int32,
+                        device=dev)
+    frames = fp._windowed_frames(wavs, fcfg)
+    t = frames.shape[1]
+    t_pad = ((t + 127) // 128) * 128
+    check(t_pad == 3072, f"T_pad {t_pad}")
+    fpad = torch.zeros((B, t_pad, fcfg.frame_length), device=dev)
+    fpad[:, :t] = frames
+    frames2 = fpad.reshape(B * t_pad, fcfg.frame_length).contiguous()
+    valid = torch.where(
+        nvalid >= fcfg.frame_length,
+        torch.div(nvalid - fcfg.frame_length, fcfg.hop_length, rounding_mode="floor"),
+        torch.zeros_like(nvalid),
+    ).to(torch.int32)
+    f = fcfg.feature_freqs
+    n_rows, fl = frames2.shape
+    d = 8 * f
+    nfft, length = fbank.nfft, fbank.length
+    hop, bins = nfft - length + 1, nfft // 2 + 1
+    nblk = -(-(t_pad - length + 1) // hop)
+    m = B * nblk
+    rows = []
+
+    def record(mod, err, tol, ms, plain_ms, lib_ms, nbytes, ops, rate):
+        bms, by = bound_ms(nbytes, ops, rate)
+        rows.append(dict(
+            name=mod.NAME, route="cuda", source=mod.SOURCE, replaces=mod.REPLACES,
+            launches=0, max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
+            bound_ms=bms, bound_by=by, library_ms=lib_ms,
+        ))
+        say(f"{mod.NAME}: max_abs_err {err:.6g} (tolerance {tol}) kernel {ms:.4f} ms "
+            f"plain {plain_ms:.4f} ms library {lib_ms if lib_ms is None else round(lib_ms, 4)} "
+            f"ms bound {bms:.4f} ms ({by})")
+
+    # kernel 1: response planes (tolerances: check_planes)
+    planes = k1.edge_response_planes(frames2, fcfg.nfft)
+    planes_ref = k1.edge_response_planes_plain(frames2, fcfg.nfft)
+    scaled, err1, share = check_planes(torch, frames2, fcfg.nfft, planes, planes_ref,
+                                       "frontend_planes")
+    say(f"frontend_planes: scaled error {scaled:.3g} on {share:.3f} of the cells "
+        "(tolerance 1e-5)")
+    cos_m, sin_m = dft_matrices(fl, fcfg.nfft, dev)
+    cs = torch.cat([cos_m, sin_m], dim=1).contiguous()
+    record(
+        k1, err1, "scaled 1e-5, abs 1e-3",
+        time_ms(torch, lambda: k1.edge_response_planes(frames2, fcfg.nfft)),
+        time_ms(torch, lambda: k1.edge_response_planes_plain(frames2, fcfg.nfft)),
+        time_ms(torch, lambda: torch.matmul(frames2, cs)),
+        n_rows * fl * 4 + 2 * fl * (f + 1) * 4 + 4 * n_rows * f * 4,
+        2 * 2 * n_rows * fl * (f + 1), FP32_FLOPS,
+    )
+
+    # kernel 2: select + binarize + spread; bitwise
+    planes4 = planes.reshape(4, B, t_pad, f)
+    need = fp._dual_ranks(valid, f, fcfg.edge_quantile)
+    args2 = (planes4, need, valid, fcfg.spread_freq, fcfg.spread_time)
+    flat, keys = k2.select_binspread(*args2)
+    flat_ref, keys_ref = k2.select_binspread_plain(*args2)
+    torch.cuda.synchronize()
+    n_bad = int((flat != flat_ref).sum()) + int((keys != keys_ref).sum())
+    check(n_bad == 0, f"select_binspread: {n_bad} cells or keys differ (bitwise)")
+    kth = int(need[0, 0])
+    pv = planes4.permute(1, 0, 2, 3).reshape(B * 4, t_pad * f)
+    record(
+        k2, 0.0, "bitwise",
+        time_ms(torch, lambda: k2.select_binspread(*args2)),
+        time_ms(torch, lambda: k2.select_binspread_plain(*args2)),
+        time_ms(torch, lambda: torch.kthvalue(pv, kth, dim=1)),
+        # only rows below valid are read; the whole map is written
+        4 * int(valid.sum()) * f * 4 + B * t_pad * 8 * f + need.numel() * 4
+        + valid.numel() * 4 + keys.numel() * 4,
+        0, 1.0,
+    )
+
+    # kernel 3: block DFT; bf16 output -> one bf16 step (2^-7) of max|ref|
+    bf16_tol = 2.0 ** -7
+    x = flat.reshape(B, t_pad, d).to(torch.bfloat16)
+    cmat, smat = fs._dft_mats(nfft, torch.bfloat16, dev)
+    g = torch.cat([cmat, -smat], dim=1).contiguous()
+    xr, xi = k3.fft_block_dft(x, g, nfft, hop, nblk)
+    xr_ref, xi_ref = k3.fft_block_dft_plain(x, g, nfft, hop, nblk)
+    err3 = max(float((xr.float() - xr_ref.float()).abs().max()),
+               float((xi.float() - xi_ref.float()).abs().max()))
+    ref3 = max(float(xr_ref.float().abs().max()), float(xi_ref.float().abs().max()))
+    check(err3 <= bf16_tol * ref3, f"fft_block_dft: {err3} > 2^-7 * {ref3}")
+    blocks = torch.nn.functional.pad(x, (0, 0, 0, nblk * hop + nfft - hop - t_pad))
+    blocks = blocks.unfold(1, nfft, hop).permute(3, 0, 1, 2).reshape(nfft, m * d).contiguous()
+    g_t = g.t().contiguous()
+    record(
+        k3, err3, "2^-7 * max|ref|",
+        time_ms(torch, lambda: k3.fft_block_dft(x, g, nfft, hop, nblk)),
+        time_ms(torch, lambda: k3.fft_block_dft_plain(x, g, nfft, hop, nblk)),
+        time_ms(torch, lambda: torch.matmul(g_t, blocks)),
+        B * t_pad * d * 2 + g.numel() * 2 + 2 * bins * m * d * 2,
+        2 * (2 * bins) * nfft * m * d, BF16_FLOPS,
+    )
+    del blocks
+
+    # kernel 4: bin matmul; bf16 output
+    ycat = k4.fft_binmm(xr, xi, fbank.w2)
+    ycat_ref = k4.fft_binmm_plain(xr, xi, fbank.w2)
+    err4 = float((ycat.float() - ycat_ref.float()).abs().max())
+    ref4 = float(ycat_ref.float().abs().max())
+    check(err4 <= bf16_tol * ref4, f"fft_binmm: {err4} > 2^-7 * {ref4}")
+    xr3, xi3 = xr.reshape(bins, m, d), xi.reshape(bins, m, d)
+    x2 = torch.cat([torch.cat([xr3, xi3], 2), torch.cat([xi3, -xr3], 2)], 1)
+    record(
+        k4, err4, "2^-7 * max|ref|",
+        time_ms(torch, lambda: k4.fft_binmm(xr, xi, fbank.w2)),
+        time_ms(torch, lambda: k4.fft_binmm_plain(xr, xi, fbank.w2)),
+        time_ms(torch, lambda: torch.bmm(x2, fbank.w2)),
+        2 * bins * m * d * 2 + fbank.w2.numel() * 2 + 2 * bins * m * K * 2,
+        2 * (2 * m) * (2 * d) * K * bins, BF16_FLOPS,
+    )
+    del x2
+
+    # kernel 5: iDFT epilogue; fp32 output, fp32 summation order only
+    icm, ism = fs._idft_mats(nfft, hop, torch.bfloat16, dev)
+    imat = torch.cat([icm, -ism], dim=0).contiguous()
+    y2 = ycat.reshape(2 * bins, m * K)
+    sc = k5.fft_idft(y2, imat, fbank.c, nblk)
+    sc_ref = k5.fft_idft_plain(y2, imat, fbank.c, nblk)
+    err5 = float((sc - sc_ref).abs().max())
+    ref5 = float(sc_ref.abs().max())
+    check(err5 <= 1e-5 * ref5, f"fft_idft: {err5} > 1e-5 * {ref5}")
+    imat_t = imat.t().contiguous()
+    record(
+        k5, err5, "1e-5 * max|ref|",
+        time_ms(torch, lambda: k5.fft_idft(y2, imat, fbank.c, nblk)),
+        time_ms(torch, lambda: k5.fft_idft_plain(y2, imat, fbank.c, nblk)),
+        time_ms(torch, lambda: torch.matmul(imat_t, y2)),
+        y2.numel() * 2 + imat.numel() * 2 + K * 4 + m * hop * K * 4,
+        2 * (2 * bins) * hop * m * K, BF16_FLOPS,
+    )
+
+    # whole scorer: bf16 kernels vs the f32 plain path on the same map
+    s_k = fs.fft_sliding_scores(flat.reshape(B, t_pad, d), fbank, time_major=True)
+    s_p = fs.fft_sliding_scores(flat.reshape(B, t_pad, d), fbank32, time_major=True,
+                                plain=True)
+    err_s = float((s_k - s_p).abs().max())
+    ref_s = float(s_p.abs().max())
+    check(bool(torch.isfinite(s_k).all()), "scores not finite")
+    check(err_s <= 4e-3 * ref_s, f"scores: {err_s} > 4e-3 * {ref_s}")
+    say(f"scores (bf16 kernels vs f32 plain): max err {err_s:.6g} = "
+        f"{err_s / ref_s:.3g} of max|score| {ref_s:.6g} (tolerance 4e-3)")
+    del planes, planes_ref, s_k, s_p
+    torch.cuda.empty_cache()
+
+    small_shape_checks(torch, dev, k1, k2, k3, k4, k5, fp, fs)
+    say("small ragged shapes: all five kernels agree with their plain versions")
+
+    # ---- the scan at full width ---------------------------------------
+    scan_cfg = C.PipelineConfig(detect=C.DetectConfig(batch_size=B))
+    # one warm-up batch: first calls of PyTorch's own kernels (masking,
+    # NMS, top-K) load their modules lazily
+    detect_corpus_stream(corpus.head(B), bank, scan_cfg, target_phone="aa")
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    res = detect_corpus_stream(corpus, bank, scan_cfg, target_phone="aa")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _cuda.launch_counts()
+    for row in rows:
+        row["launches"] = int(counts.get(row["name"], 0))
+        check(row["launches"] > 0, f"{row['name']} was not launched by the scan")
+    ctr = res.counters
+    stages = " ".join(
+        f"{s} {ctr.get(f'device_ms_{s}', 0.0) / ctr['batches']:.3f} ms"
+        for s in ("frontend", "score", "nms")
+    )
+    check(ctr["batches"] == 3, f"expected 3 batches, got {ctr['batches']}")
+    say(f"scan: {ctr['utterances']:.0f} utterances, {ctr['audio_seconds']:.1f} audio-s, "
+        f"{ctr['audio_s_per_s']:.1f} audio-s/s (scan loop {ctr['time_scan_s']:.4f} s; "
+        f"with the bank build {wall:.4f} s); mean device time per batch "
+        f"({ctr['batches']:.0f} batches): {stages} (CUDA events); launches {counts}")
+    ref = detect_corpus_stream(corpus, bank, scan_cfg, target_phone="aa", plain=True)
+    dk, dp = res.detections, ref.detections
+    check(len(dk.scores) > 0 and bool(np.isfinite(dk.scores).all()), "no detections")
+    matched = same_id = 0
+    for ui in range(len(res.utt_ids)):
+        a = dict(zip(dk.times[dk.utterance_ids == ui].tolist(),
+                     dk.template_ids[dk.utterance_ids == ui].tolist()))
+        b = dict(zip(dp.times[dp.utterance_ids == ui].tolist(),
+                     dp.template_ids[dp.utterance_ids == ui].tolist()))
+        common = set(a) & set(b)
+        matched += len(common)
+        same_id += sum(a[tt] == b[tt] for tt in common)
+    frac = matched / max(len(dk.scores), len(dp.scores))
+    id_frac = same_id / max(matched, 1)
+    say(f"scan vs plain scan: {len(dk.scores)} vs {len(dp.scores)} detections, "
+        f"{frac:.4f} matched peaks, {id_frac:.4f} same template on matched")
+    check(frac >= 0.99, f"matched peaks {frac} < 0.99")
+    check(id_frac >= 0.99, f"template ids agree on {id_frac} < 0.99 of matched")
+
+    say(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": rows}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except CheckFailed as exc:
+        print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+        sys.exit(1)

@@ -1,0 +1,171 @@
+"""FFT-domain sliding-window LLR correlation (overlap-save).
+
+Counterpart of ``template_speech_recognition_tpu.detect.fft_scorer``.
+Scores ``s[b, t, k] = sum_{l, d} W[k, l, d] x[b, t + l, d] + c[k]``
+are computed as GEMMs in the frequency domain:
+
+1. overlap-save blocks of ``nfft`` frames (hop = nfft - L + 1) and the
+   forward DFT of each block -- kernel 3 (``ops.fft_dft_kernel``);
+2. per bin, the complex product with the template spectra W2 as one
+   real GEMM ``[Xr|Xi ; Xi|-Xr] @ W2`` -- kernel 4
+   (``ops.fft_binmm_kernel``);
+3. the inverse DFT of the first ``hop`` samples per block, written
+   time-major with the offsets ``c`` added -- kernel 5
+   (``ops.fft_idft_kernel``).
+
+Numerics follow the reference: on the card every GEMM operand is bf16
+(``g``, ``imat``, ``w2``, the map, ``xr``/``xi``, ``ycat``) with fp32
+accumulation; on the CPU everything is float32.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from template_speech_recognition_tpu_torch.ops.fft_binmm_kernel import (
+    fft_binmm,
+    fft_binmm_plain,
+)
+from template_speech_recognition_tpu_torch.ops.fft_dft_kernel import (
+    fft_block_dft,
+    fft_block_dft_plain,
+)
+from template_speech_recognition_tpu_torch.ops.fft_idft_kernel import (
+    fft_idft,
+    fft_idft_plain,
+)
+
+
+def pick_nfft(length: int, bank_k: int = 0) -> int:
+    """hop = 16-aligned ~4*L (banks of 4096 templates or more: ~6*L),
+    nfft = hop + L - 1.  Copied unchanged from the reference, whose
+    constants were swept on a TPU; they define the parity target here
+    (a sweep on the H100 is later work)."""
+    mult = 6 if bank_k >= 4096 else 4
+    hop = max(16, ((mult * length + 15) // 16) * 16)
+    return hop + length - 1
+
+
+@dataclasses.dataclass(frozen=True)
+class FFTBank:
+    """Frequency-domain template bank: ``w2`` [bins, 2D, K] spectra
+    (real stacked on imaginary along the contraction axis) and ``c``
+    [K] score offsets."""
+
+    w2: torch.Tensor
+    c: torch.Tensor
+    length: int
+    nfft: int
+    d: int
+
+    @property
+    def k(self) -> int:
+        return self.w2.shape[-1]
+
+
+def _dft_mats(nfft: int, dtype, device=None):
+    t = np.arange(nfft)
+    f = np.arange(nfft // 2 + 1)
+    ang = 2.0 * np.pi * np.outer(t, f) / nfft
+    return (
+        torch.from_numpy(np.cos(ang)).to(device=device, dtype=dtype),
+        torch.from_numpy(np.sin(ang)).to(device=device, dtype=dtype),
+    )
+
+
+def _idft_mats(nfft: int, nout: int, dtype, device=None):
+    f = np.arange(nfft // 2 + 1)
+    t = np.arange(nout)
+    ang = 2.0 * np.pi * np.outer(f, t) / nfft
+    wgt = np.full((nfft // 2 + 1, 1), 2.0)
+    wgt[0] = 1.0
+    if nfft % 2 == 0:
+        wgt[-1] = 1.0          # the Nyquist bin exists only for even nfft
+    return (
+        torch.from_numpy(np.cos(ang) * wgt / nfft).to(device=device, dtype=dtype),
+        torch.from_numpy(np.sin(ang) * wgt / nfft).to(device=device, dtype=dtype),
+    )
+
+
+def _bank_spectra(w: torch.Tensor, nfft: int, mm_dtype) -> torch.Tensor:
+    """[K, L, D] filters -> [bins, 2D, K] spectra (float32 math).  The
+    zero padding to nfft frames contributes nothing, so only the L
+    rows of the DFT matrices are multiplied."""
+    length = w.shape[1]
+    cmat, smat = _dft_mats(nfft, torch.float32, w.device)
+    w = w.to(torch.float32)
+    wr = torch.einsum("ktd,tf->fdk", w, cmat[:length])
+    wi = -torch.einsum("ktd,tf->fdk", w, smat[:length])
+    return torch.cat([wr, wi], dim=1).to(mm_dtype)
+
+
+def build_fft_bank(w: torch.Tensor, c: torch.Tensor, nfft: int | None = None,
+                   mm_dtype=None) -> FFTBank:
+    """One-time per-bank setup: W [K, L, F, E] (or [K, L, D]) + c [K]
+    -> frequency-domain bank.  ``mm_dtype=None`` picks bfloat16 on the
+    card (the kernels' operand type) and float32 on the CPU."""
+    if mm_dtype is None:
+        mm_dtype = torch.bfloat16 if w.device.type == "cuda" else torch.float32
+    if mm_dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(
+            f"mm_dtype {mm_dtype}: int8 template spectra are not ported yet "
+            "(ROADMAP.md Queue 2, 'fft_binmm int8')"
+        )
+    k, length = w.shape[0], w.shape[1]
+    d = int(np.prod(w.shape[2:]))
+    if nfft is None:
+        nfft = pick_nfft(length, bank_k=k)
+    if nfft - length + 1 <= 0:
+        raise ValueError(f"nfft {nfft} too small for template length {length}")
+    w2 = _bank_spectra(w.reshape(k, length, d), nfft, mm_dtype)
+    return FFTBank(w2=w2.contiguous(), c=c.to(torch.float32), length=length,
+                   nfft=nfft, d=d)
+
+
+def fft_sliding_scores(
+    feats: torch.Tensor,
+    bank: FFTBank,
+    time_major: bool = False,
+    trim: bool = True,
+    plain: bool = False,
+) -> torch.Tensor:
+    """feats [B, T, F, E] (or [B, T, D]; bool/float) -> [B, K, T-L+1]
+    (or [B, T-L+1, K] with ``time_major``).
+
+    Window starts whose support overruns T read zero padding; callers
+    mask them (``detect.scorer.masked_scores``).  ``trim=False``
+    (time-major only) returns all ``nblk*hop`` rows.  ``plain=True``
+    runs the kernels' plain PyTorch versions on any device."""
+    if not trim and not time_major:
+        raise ValueError("trim=False requires time_major=True")
+    length, nfft, d = bank.length, bank.nfft, bank.d
+    mm = bank.w2.dtype
+    dev = feats.device
+    b, t = feats.shape[0], feats.shape[1]
+    x = feats.reshape(b, t, d).to(mm).contiguous()
+    tout = t - length + 1
+    if tout <= 0:
+        raise ValueError(f"T {t} shorter than template length {length}")
+    hop = nfft - length + 1
+    bins = nfft // 2 + 1
+    nblk = -(-tout // hop)
+    m = b * nblk
+    k = bank.k
+
+    dft_fn = fft_block_dft_plain if plain else fft_block_dft
+    binmm_fn = fft_binmm_plain if plain else fft_binmm
+    idft_fn = fft_idft_plain if plain else fft_idft
+
+    cmat, smat = _dft_mats(nfft, mm, dev)
+    g = torch.cat([cmat, -smat], dim=1).contiguous()          # [nfft, 2*bins]
+    xr, xi = dft_fn(x, g, nfft, hop, nblk)                     # [bins, B, nblk, D]
+    ycat = binmm_fn(xr, xi, bank.w2)                           # [2, bins, m, K]
+    icmat, ismat = _idft_mats(nfft, hop, mm, dev)
+    imat = torch.cat([icmat, -ismat], dim=0).contiguous()     # [2*bins, hop]
+    scores_t = idft_fn(ycat.reshape(2 * bins, m * k), imat, bank.c, nblk)
+    if time_major:
+        return scores_t if not trim else scores_t[:, :tout]
+    return torch.transpose(scores_t[:, :tout], 1, 2)

@@ -1,0 +1,75 @@
+"""Kernel 4: per-bin complex bank matmul.
+
+Replaces ``template_speech_recognition_tpu/ops/fft_binmm_pallas.py``
+``fft_binmm_pallas``, bf16 ``_kernel`` (its ``pallas_call`` at line
+202), with the 3-D wrapper ``detect/fft_scorer.py::_binmm_pallas``.
+
+Per frequency bin: ``[Xr | Xi ; Xi | -Xr] [2m, 2D] @ W2 [2D, K]`` with
+fp32 accumulation, written ``[2, bins, m, K]`` in the input dtype:
+``y[0]`` is the real part of ``Xf * conj(Wf)``, ``y[1]`` the imaginary.
+
+CUDA design (``csrc/fft_gemm.cu``, ``BinmmOps``): one GEMM per bin,
+M = 2m, N = K, K = 2D, on the shared mma.sync tile routine.  The packed
+operand is built in the A-operand load from the xr/xi rows (the
+``-Xr`` block by flipping bf16 sign bits), never materialized.  The
+M tiles of one (bin, K tile) are adjacent in the grid, so each W2 tile
+is read from device memory once and from L2 by its neighbours.
+
+What bounds it on the H100: bf16 operations, closely followed by bytes.
+258 GFLOP (m=192, D=2048, K=1024, bins=80) take 0.26 ms at 989
+TFLOP/s; W2 (671 MB) plus xr/xi and the output take 0.23 ms.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from template_speech_recognition_tpu_torch.ops import _cuda
+
+NAME = "fft_binmm"
+SOURCE = "template_speech_recognition_tpu_torch/csrc/fft_gemm.cu"
+REPLACES = "template_speech_recognition_tpu/ops/fft_binmm_pallas.py:202"
+
+
+def fft_binmm_plain(xr, xi, w2):
+    """Plain PyTorch version: materialize the packed operand, one fp32
+    batched product (TF32 off, PyTorch's default), round."""
+    bins, d = xr.shape[0], xr.shape[-1]
+    xr3 = xr.reshape(bins, -1, d).to(torch.float32)
+    xi3 = xi.reshape(bins, -1, d).to(torch.float32)
+    m = xr3.shape[1]
+    x2 = torch.cat(
+        [torch.cat([xr3, xi3], dim=2), torch.cat([xi3, -xr3], dim=2)], dim=1
+    )                                                      # [bins, 2m, 2D]
+    y = torch.bmm(x2, w2.to(torch.float32)).to(xr.dtype)   # [bins, 2m, K]
+    return torch.stack([y[:, :m], y[:, m:]])
+
+
+def fft_binmm(xr, xi, w2):
+    """xr, xi [bins, m, D] (or [bins, B, nblk, D]) x W2 [bins, 2D, K]
+    -> [2, bins, m, K].  CPU tensors take the plain version; CUDA
+    tensors launch the kernel (bf16 only)."""
+    if _cuda.on_cpu(xr, xi, w2):
+        return fft_binmm_plain(xr, xi, w2)
+    bins, d = xr.shape[0], xr.shape[-1]
+    xr3 = xr.reshape(bins, -1, d)
+    xi3 = xi.reshape(bins, -1, d)
+    _cuda.require(xr3, "xr", torch.bfloat16, 3)
+    _cuda.require(xi3, "xi", torch.bfloat16, 3)
+    _cuda.require(w2, "w2", torch.bfloat16, 3)
+    m = xr3.shape[1]
+    k = w2.shape[2]
+    if xi3.shape != xr3.shape or tuple(w2.shape[:2]) != (bins, 2 * d):
+        raise ValueError(f"bad shapes: xr {tuple(xr.shape)}, w2 {tuple(w2.shape)}")
+    if d % 8 or k % 8:
+        raise ValueError(f"D={d} and K={k} must be multiples of 8")
+    out = torch.empty((2, bins, m, k), dtype=torch.bfloat16, device=xr.device)
+    lib = _cuda.load("fft_gemm")
+    fn = _cuda.declare(lib, "tsr_fft_binmm", 4, 4)
+    err = fn(
+        _cuda.ptr(xr3), _cuda.ptr(xi3), _cuda.ptr(w2), _cuda.ptr(out),
+        bins, m, d, k, _cuda.stream_ptr(xr.device),
+    )
+    _cuda.check(lib, err, NAME)
+    _cuda.count_launch(NAME)
+    return out

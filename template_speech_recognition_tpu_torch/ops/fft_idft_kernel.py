@@ -1,0 +1,72 @@
+"""Kernel 5: inverse-DFT epilogue, written time-major.
+
+Replaces ``template_speech_recognition_tpu/ops/fft_idft_pallas.py``
+``fft_idft_pallas`` (``_kernel``; its ``pallas_call`` at line 94).
+
+``scores[b, i*hop + tau, k] = sum_r imat[r, tau] * ycat[r, (b*nblk + i)*K + k] + c[k]``
+in fp32: the iDFT GEMM, the blocks -> time reassembly and the offset
+add in one pass, output ``[B, nblk*hop, K]`` (time-major).
+
+CUDA design (``csrc/fft_gemm.cu``, ``IdftOps``): one GEMM per block j,
+M = hop, N = K, K = 2*bins, on the shared mma.sync tile routine; the
+store adds ``c`` and writes row ``j*hop + tau`` directly, so the
+reassembly costs nothing.
+
+What bounds it on the H100: bytes.  ycat in once and the fp32 scores
+out once (63 + 101 MB at m=192, K=1024, bins=80, hop=128) take
+0.049 ms; the 8 GFLOP of bf16 take 0.008 ms.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from template_speech_recognition_tpu_torch.ops import _cuda
+
+NAME = "fft_idft"
+SOURCE = "template_speech_recognition_tpu_torch/csrc/fft_gemm.cu"
+REPLACES = "template_speech_recognition_tpu/ops/fft_idft_pallas.py:94"
+
+
+def _shapes(ycat, imat, c, nblk: int):
+    two_bins, mk = ycat.shape
+    hop, k = imat.shape[1], c.shape[0]
+    if two_bins != imat.shape[0] or mk % k or (mk // k) % nblk:
+        raise ValueError(
+            f"bad shapes: ycat {tuple(ycat.shape)}, imat {tuple(imat.shape)}, "
+            f"K {k}, nblk {nblk}"
+        )
+    m = mk // k
+    return two_bins, hop, k, m, m // nblk
+
+
+def fft_idft_plain(ycat, imat, c, nblk: int):
+    """Plain PyTorch version: one fp32 GEMM, a reassembly permute, +c."""
+    _two_bins, hop, k, _m, b = _shapes(ycat, imat, c, nblk)
+    s = imat.to(torch.float32).T @ ycat.to(torch.float32)     # [hop, m*K]
+    s = s.reshape(hop, b, nblk, k).permute(1, 2, 0, 3).reshape(b, nblk * hop, k)
+    return s + c.to(torch.float32)
+
+
+def fft_idft(ycat, imat, c, nblk: int):
+    """ycat [2*bins, m*K] x imat [2*bins, hop] + c [K] -> scores
+    [B, nblk*hop, K] f32.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel (bf16 ycat/imat, f32 c)."""
+    if _cuda.on_cpu(ycat, imat, c):
+        return fft_idft_plain(ycat, imat, c, nblk)
+    _cuda.require(ycat, "ycat", torch.bfloat16, 2)
+    _cuda.require(imat, "imat", torch.bfloat16, 2)
+    _cuda.require(c, "c", torch.float32, 1)
+    two_bins, hop, k, m, b = _shapes(ycat, imat, c, nblk)
+    if k % 8:
+        raise ValueError(f"K={k} must be a multiple of 8")
+    out = torch.empty((b, nblk * hop, k), dtype=torch.float32, device=ycat.device)
+    lib = _cuda.load("fft_gemm")
+    fn = _cuda.declare(lib, "tsr_fft_idft", 4, 4)
+    err = fn(
+        _cuda.ptr(ycat), _cuda.ptr(imat), _cuda.ptr(c), _cuda.ptr(out),
+        two_bins, hop, m, k, _cuda.stream_ptr(ycat.device),
+    )
+    _cuda.check(lib, err, NAME)
+    _cuda.count_launch(NAME)
+    return out

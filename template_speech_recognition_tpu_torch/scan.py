@@ -1,0 +1,300 @@
+"""Streaming batched corpus scan -- the production detect path.
+
+Counterpart of ``template_speech_recognition_tpu.scan``
+(``detect_corpus_stream`` -> ``stream_scan`` -> ``scan_step``):
+
+* utterances group into sample-length buckets (``bucket_length``);
+* each full bucket batch runs one ``scan_step`` on the device:
+  ``frontend_batch_flat -> fft_sliding_scores -> masked_scores ->
+  batched NMS/top-K`` with no host sync inside;
+* tail batches shrink to the next power of two that holds their rows;
+* a window of ``DEPTH`` dispatched batches stays in flight: each
+  batch's waveforms go up from pinned host memory and its fixed-size
+  (s, t, k) triple comes back through ONE ``non_blocking`` copy into
+  pinned host memory, read only when the window is full.
+
+Options of the reference that are not ported yet raise
+``NotImplementedError`` naming their ROADMAP item; none is ignored.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import os
+
+import numpy as np
+import torch
+
+from template_speech_recognition_tpu_torch.config import PipelineConfig
+from template_speech_recognition_tpu_torch.detect import evaluate as ev
+from template_speech_recognition_tpu_torch.detect.fft_scorer import (
+    build_fft_bank,
+    fft_sliding_scores,
+)
+from template_speech_recognition_tpu_torch.detect.nms import top_detections
+from template_speech_recognition_tpu_torch.detect.scorer import masked_scores
+from template_speech_recognition_tpu_torch.frontend import frontend_batch_flat
+from template_speech_recognition_tpu_torch.models.bank import TemplateBank
+from template_speech_recognition_tpu_torch.ops.layout import filters_to_flat
+from template_speech_recognition_tpu_torch.utils.metrics import StageCounters
+
+STAGES = ("frontend", "score", "nms")
+# dispatched batches in flight before the oldest one's result is read
+DEPTH = 3
+
+
+def bucket_length(n: int, quantum: int = 16384) -> int:
+    """Round up to the bucket grid so a scan sees few distinct shapes."""
+    return max(quantum, ((n + quantum - 1) // quantum) * quantum)
+
+
+@dataclasses.dataclass
+class CorpusDetections:
+    detections: ev.DetectionSet
+    labels_per_utterance: list[np.ndarray]   # frame-index starts
+    audio_seconds: float
+    utt_ids: list[str]
+    counters: dict[str, float] = dataclasses.field(default_factory=dict)
+
+
+def batched_top_detections(scores, valid_frames, template_length,
+                           nms_radius, top_k, time_major):
+    """[B, ...] scores + [B] valid -> per-utterance (s, t, k) top-K."""
+    sc = masked_scores(scores, valid_frames, template_length,
+                       time_major=time_major)
+    return top_detections(sc, nms_radius, top_k, time_major=time_major)
+
+
+def scan_step(
+    wavs: torch.Tensor,            # [B, S] padded waveforms
+    valid_samples: torch.Tensor,   # [B] int32
+    fft_bank,
+    *,
+    fcfg,
+    template_length: int,
+    nms_radius: int,
+    top_k: int,
+    plain: bool = False,
+    marks: list | None = None,
+):
+    """One scan step: waveforms -> fixed-size detections, no host sync.
+    Padded batch rows (valid_samples == 0) come out as all -inf.
+
+    ``plain=True`` runs every kernel's plain PyTorch version.  ``marks``
+    (CUDA only): a list that receives a recorded CUDA event after each
+    stage, for device-time accounting."""
+    def mark(name):
+        if marks is not None:
+            ev_ = torch.cuda.Event(enable_timing=True)
+            ev_.record()
+            marks.append((name, ev_))
+
+    mark("start")
+    fm = frontend_batch_flat(wavs, valid_samples, fcfg, plain=plain)
+    mark("frontend")
+    # time-major + trim=False: the iDFT kernel's native layout flows
+    # straight into masking/NMS (no transpose, no tail slice)
+    scores = fft_sliding_scores(fm.binary, fft_bank, time_major=True,
+                                trim=False, plain=plain)
+    mark("score")
+    out = batched_top_detections(scores, fm.valid_frames, template_length,
+                                 nms_radius, top_k, time_major=True)
+    mark("nms")
+    return out
+
+
+def _reject_unported(cfg: PipelineConfig, manifest) -> None:
+    dcfg = cfg.detect
+    if dcfg.score_backend != "fft":
+        raise NotImplementedError(
+            f"score_backend={dcfg.score_backend!r}: only the fft scorer is "
+            "ported (ROADMAP.md Queue 1, item 8)"
+        )
+    if dcfg.dtw_rescore:
+        raise NotImplementedError(
+            "dtw_rescore: DTW rescoring is not ported yet (ROADMAP.md Queue 1, "
+            "item 7)"
+        )
+    if dcfg.int8_spectra:
+        raise NotImplementedError(
+            "int8_spectra: the int8 bin-matmul is not ported yet (ROADMAP.md "
+            "Queue 2, 'fft_binmm int8')"
+        )
+    if dcfg.exact_scores:
+        raise NotImplementedError(
+            "exact_scores: the int32 scorer is not ported yet (ROADMAP.md "
+            "Queue 1, item 8)"
+        )
+    if manifest is not None:
+        raise NotImplementedError(
+            "manifest: scan resume is not ported yet (ROADMAP.md Queue 1, "
+            "item 6, 'manifest resume')"
+        )
+
+
+def detect_corpus_stream(
+    corpus,
+    bank: TemplateBank,
+    cfg: PipelineConfig,
+    target_phone: str | None = None,
+    manifest=None,
+    plain: bool = False,
+) -> CorpusDetections:
+    """Streaming bucketed corpus scan on the bank's device; same results
+    contract as the reference (scores allclose, detections identical).
+
+    ``plain=True`` runs the kernels' plain versions (the reference the
+    kernels are held against)."""
+    _reject_unported(cfg, manifest)
+    fcfg, dcfg = cfg.frontend, cfg.detect
+    dev = bank.device
+    wf, cf = bank.llr()
+    fft_bank = build_fft_bank(filters_to_flat(wf), cf)
+
+    def compute(wavs, vs, marks):
+        return scan_step(
+            wavs, vs, fft_bank,
+            fcfg=fcfg, template_length=bank.template_length,
+            nms_radius=dcfg.nms_radius,
+            top_k=dcfg.effective_top_k(wavs.shape[1], fcfg.sample_rate),
+            plain=plain, marks=marks,
+        )
+
+    return stream_scan(
+        corpus, fcfg, max(1, dcfg.batch_size), compute, bank.num_templates,
+        dev, target_phone=target_phone,
+    )
+
+
+def stream_scan(
+    corpus,
+    fcfg,
+    batch_size: int,
+    compute,
+    num_templates: int,
+    device: torch.device,
+    target_phone: str | None = None,
+    local_rows=None,
+) -> CorpusDetections:
+    """bucket -> batch -> ``compute(wavs [B, S], valid [B], marks) ->
+    (s, t, k)`` on ``device`` -> windowed fetch -> ``DetectionSet``."""
+    if local_rows is not None:
+        raise NotImplementedError(
+            "local_rows: per-process lazy feeding is not ported yet "
+            "(ROADMAP.md Queue 1, item 6, 'lazy feeding')"
+        )
+    if os.environ.get("SCAN_UPLOAD_INT16", "0") == "1":
+        raise NotImplementedError(
+            "SCAN_UPLOAD_INT16: PCM16 upload is not ported yet (ROADMAP.md "
+            "Queue 1, item 6, 'PCM16 upload')"
+        )
+    cuda = device.type == "cuda"
+    stats = StageCounters()
+    results: dict[int, tuple] = {}
+    labels: list[np.ndarray] = []
+    utt_ids: list[str] = []
+    pending: dict[int, list] = {}       # pad_samples -> [(gidx, wav)]
+    inflight = collections.deque()
+    device_ms = collections.defaultdict(float)
+    total_samples = 0
+    n_batches = 0
+    stats.start("scan")
+
+    def flush(items, pad):
+        b_eff = batch_size
+        if len(items) < batch_size:
+            b_eff = 1
+            while b_eff < len(items):
+                b_eff *= 2
+            b_eff = min(b_eff, batch_size)
+        wavs = torch.zeros((b_eff, pad), dtype=torch.float32, pin_memory=cuda)
+        vs = torch.zeros((b_eff,), dtype=torch.int32, pin_memory=cuda)
+        w_np, v_np = wavs.numpy(), vs.numpy()
+        for row, (_g, payload) in enumerate(items):
+            v_np[row] = len(payload)
+            w_np[row, : len(payload)] = payload
+        marks = [] if cuda else None
+        s, t, k = compute(
+            wavs.to(device, non_blocking=True), vs.to(device, non_blocking=True),
+            marks,
+        )
+        # times and template ids are exact in float32 (< 2**24): one
+        # packed array, one device->host copy per batch
+        packed = torch.stack([s, t.to(torch.float32), k.to(torch.float32)])
+        done = None
+        if cuda:
+            host = torch.empty(packed.shape, dtype=torch.float32, pin_memory=True)
+            host.copy_(packed, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        else:
+            host = packed
+        return ([g for g, _w in items], host, done, marks, (wavs, vs))
+
+    def drain(flight):
+        gidxs, host, done, marks, _keep_alive = flight
+        if done is not None:
+            done.synchronize()
+        for (_n0, e0), (name, e1) in zip(marks or [], (marks or [])[1:]):
+            device_ms[name] += e0.elapsed_time(e1)
+        a = host.numpy()
+        s = np.asarray(a[0], np.float32)
+        t = a[1].astype(np.int32)
+        k = a[2].astype(np.int32)
+        for row, g in enumerate(gidxs):
+            results[g] = (s[row], t[row], k[row])
+
+    def submit(flight):
+        inflight.append(flight)
+        while len(inflight) > DEPTH:
+            drain(inflight.popleft())
+
+    for gidx, (uid, wav, phones) in enumerate(corpus.iter_utterances()):
+        nf = len(wav)
+        total_samples += nf
+        utt_ids.append(uid)
+        if target_phone is not None:
+            labels.append(np.asarray(
+                [s0 // fcfg.hop_length
+                 for (ph, s0, _e) in phones if ph == target_phone],
+                dtype=np.int64,
+            ))
+        else:
+            labels.append(np.zeros(0, np.int64))
+        stats.add("frames", float(
+            (nf - fcfg.frame_length) // fcfg.hop_length
+            if nf >= fcfg.frame_length else 0
+        ))
+        pad = bucket_length(nf)
+        pending.setdefault(pad, []).append((gidx, wav))
+        if len(pending[pad]) == batch_size:
+            submit(flush(pending.pop(pad), pad))
+            n_batches += 1
+    # partial tail batches, one per bucket (rows past the tail stay
+    # zero -> valid 0 -> all -inf detections, dropped by DetectionSet)
+    for pad in sorted(pending):
+        submit(flush(pending[pad], pad))
+        n_batches += 1
+    while inflight:
+        drain(inflight.popleft())
+    if not utt_ids:
+        raise ValueError("empty corpus")
+
+    per_utt = [results[g] for g in range(len(utt_ids))]
+    dets = ev.DetectionSet.from_per_utterance(per_utt)
+    stats.stop("scan")
+    stats.add("batches", float(n_batches))
+    stats.add("utterances", float(len(utt_ids)))
+    stats.add("audio_seconds", total_samples / corpus.sample_rate)
+    stats.add("detections", float(len(dets.scores)))
+    stats.add("windows_scored", stats.counters["frames"] * num_templates)
+    for name in STAGES:
+        if name in device_ms:
+            stats.add(f"device_ms_{name}", device_ms[name])
+    counters = stats.to_dict()
+    counters["audio_s_per_s"] = stats.rate("audio_seconds", "scan")
+    stats.log("detect_corpus_stream ")
+    return CorpusDetections(
+        dets, labels, total_samples / corpus.sample_rate, utt_ids, counters
+    )

@@ -1,0 +1,166 @@
+"""The PyTorch port's FFT scorer against the JAX reference, on the CPU.
+
+Kernels 3-5 (block DFT, bin matmul, iDFT) run their plain PyTorch
+versions here in float32, against the reference's Pallas kernels in
+interpret mode, also in float32; the whole scorer runs against the
+reference's CPU path on the same bank, carried across by ``convert``.
+Tolerance: rtol 1e-5 with atol 1e-5 * max|reference| (float32
+summation order differs between the two).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from template_speech_recognition_tpu.detect import fft_scorer as jfs
+from template_speech_recognition_tpu.ops.fft_binmm_pallas import fft_binmm_pallas
+from template_speech_recognition_tpu.ops.fft_dft_pallas import fft_block_dft_pallas
+from template_speech_recognition_tpu.ops.fft_idft_pallas import fft_idft_pallas
+from template_speech_recognition_tpu_torch.convert import fft_bank_from_numpy
+from template_speech_recognition_tpu_torch.detect import fft_scorer as tfs
+from template_speech_recognition_tpu_torch.ops.fft_binmm_kernel import fft_binmm
+from template_speech_recognition_tpu_torch.ops.fft_dft_kernel import fft_block_dft
+from template_speech_recognition_tpu_torch.ops.fft_idft_kernel import fft_idft
+
+B, T, D, K, L = 2, 256, 1024, 128, 8
+NFFT = jfs.pick_nfft(L, K)
+HOP = NFFT - L + 1
+BINS = NFFT // 2 + 1
+NBLK = -(-(T - L + 1) // HOP)
+
+
+def _close(got, want):
+    want = np.asarray(want)
+    np.testing.assert_allclose(
+        np.asarray(got), want, rtol=1e-5, atol=1e-5 * np.max(np.abs(want))
+    )
+
+
+@pytest.fixture(scope="module")
+def problem():
+    rng = np.random.default_rng(7)
+    feats = (rng.random((B, T, D)) < 0.15).astype(np.float32)
+    w = rng.standard_normal((K, L, D)).astype(np.float32)
+    c = rng.standard_normal((K,)).astype(np.float32)
+    return feats, w, c
+
+
+@pytest.mark.parametrize("length,k", [(8, 128), (32, 1024), (32, 10000), (3, 1)])
+def test_pick_nfft_matches_reference(length, k):
+    assert tfs.pick_nfft(length, k) == jfs.pick_nfft(length, k)
+
+
+@pytest.mark.parametrize("nfft", [39, 159, 256])
+def test_dft_and_idft_mats_match_reference(nfft):
+    for got, want in zip(tfs._dft_mats(nfft, torch.float32),
+                         jfs._dft_mats(nfft, jnp.float32)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    hop = nfft - 7
+    for got, want in zip(tfs._idft_mats(nfft, hop, torch.float32),
+                         jfs._idft_mats(nfft, hop, jnp.float32)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_build_fft_bank_matches_reference(problem):
+    _feats, w, c = problem
+    got = tfs.build_fft_bank(torch.from_numpy(w), torch.from_numpy(c))
+    want = jfs.build_fft_bank(jnp.asarray(w), jnp.asarray(c))
+    assert (got.length, got.nfft, got.d) == (want.length, want.nfft, want.d)
+    _close(got.w2.numpy(), want.w2)
+    np.testing.assert_array_equal(got.c.numpy(), np.asarray(want.c))
+
+
+def _g(nfft):
+    cm, sm = jfs._dft_mats(nfft, jnp.float32)
+    return np.array(jnp.concatenate([cm, -sm], axis=1))
+
+
+def test_block_dft_matches_pallas(problem):
+    feats, _w, _c = problem
+    g = _g(NFFT)
+    xr_j, xi_j = fft_block_dft_pallas(
+        jnp.asarray(feats), jnp.asarray(g), NFFT, HOP, NBLK, dc=256,
+        interpret=True,
+    )
+    xr_t, xi_t = fft_block_dft(
+        torch.from_numpy(feats), torch.from_numpy(g), NFFT, HOP, NBLK
+    )
+    assert tuple(xr_t.shape) == (BINS, B, NBLK, D)
+    _close(xr_t.numpy(), xr_j)
+    _close(xi_t.numpy(), xi_j)
+
+
+def test_binmm_matches_pallas(problem):
+    _feats, w, c = problem
+    rng = np.random.default_rng(8)
+    xr = rng.standard_normal((BINS, B, NBLK, D)).astype(np.float32)
+    xi = rng.standard_normal((BINS, B, NBLK, D)).astype(np.float32)
+    w2 = np.array(jfs.build_fft_bank(jnp.asarray(w), jnp.asarray(c)).w2)
+    want = fft_binmm_pallas(
+        jnp.asarray(xr), jnp.asarray(xi), jnp.asarray(w2), dc=512,
+        interpret=True,
+    )
+    got = fft_binmm(torch.from_numpy(xr), torch.from_numpy(xi),
+                    torch.from_numpy(w2))
+    assert tuple(got.shape) == (2, BINS, B * NBLK, K)
+    _close(got.numpy(), want)
+
+
+def test_idft_matches_pallas(problem):
+    _feats, _w, c = problem
+    rng = np.random.default_rng(9)
+    ycat = rng.standard_normal((2 * BINS, B * NBLK * K)).astype(np.float32)
+    icm, ism = jfs._idft_mats(NFFT, HOP, jnp.float32)
+    imat = np.asarray(jnp.concatenate([icm, -ism], axis=0))
+    want = fft_idft_pallas(
+        jnp.asarray(ycat), jnp.asarray(imat), jnp.asarray(c), NBLK,
+        interpret=True,
+    )
+    got = fft_idft(torch.from_numpy(ycat), torch.from_numpy(imat),
+                   torch.from_numpy(c), NBLK)
+    assert tuple(got.shape) == (B, NBLK * HOP, K)
+    _close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("time_major,trim", [(False, True), (True, True),
+                                             (True, False)])
+def test_fft_sliding_scores_match_reference(problem, time_major, trim):
+    """The whole scorer on the JAX CPU path vs the port, both in f32
+    and on the SAME spectra (the JAX bank carried across)."""
+    feats, w, c = problem
+    jbank = jfs.build_fft_bank(jnp.asarray(w), jnp.asarray(c))
+    want = jfs.fft_sliding_scores(
+        jnp.asarray(feats), jbank, use_pallas=False, time_major=time_major,
+        trim=trim,
+    )
+    tbank = fft_bank_from_numpy(
+        np.asarray(jbank.w2), np.asarray(jbank.c), jbank.length, jbank.nfft,
+        jbank.d, device="cpu",
+    )
+    got = tfs.fft_sliding_scores(
+        torch.from_numpy(feats > 0), tbank, time_major=time_major, trim=trim
+    )
+    assert tuple(got.shape) == want.shape
+    _close(got.numpy(), want)
+
+
+def test_bf16_bank_carries_across_bitwise():
+    """convert keeps a bf16 JAX bank's bits (the card's working dtype)."""
+    rng = np.random.default_rng(3)
+    w2 = jnp.asarray(rng.standard_normal((3, 16, 8)), jnp.bfloat16)
+    bank = fft_bank_from_numpy(np.asarray(w2), np.zeros(8, np.float32), 4, 5, 8,
+                               device="cpu")
+    assert bank.w2.dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        bank.w2.to(torch.float32).numpy(), np.asarray(w2, np.float32)
+    )
+
+
+def test_int8_bank_is_not_ported():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tfs.build_fft_bank(torch.zeros(2, 4, 8), torch.zeros(2),
+                           mm_dtype=torch.int8)

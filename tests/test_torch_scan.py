@@ -1,0 +1,208 @@
+"""The PyTorch port's streaming scan end to end against the JAX
+reference, on the CPU, plus the port's package rules (no jax, no import
+of the JAX package) and its CLI."""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import oracle as O
+from template_speech_recognition_tpu import config as JC
+from template_speech_recognition_tpu.frontend import planes as jplanes
+from template_speech_recognition_tpu.pipeline import SyntheticAdapter, train_bank
+from template_speech_recognition_tpu.scan import (
+    detect_corpus_stream as jax_detect_corpus_stream,
+)
+from template_speech_recognition_tpu_torch import config as TC
+from template_speech_recognition_tpu_torch import scan as tscan
+from template_speech_recognition_tpu_torch.convert import bank_from_numpy
+from template_speech_recognition_tpu_torch.corpus import SyntheticAdapter as TAdapter
+from template_speech_recognition_tpu_torch.frontend import planes as tplanes
+
+PKG = "template_speech_recognition_tpu_torch"
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def synth():
+    return O.make_synthetic_corpus(num_utterances=7, phones_per_utterance=5, seed=3)
+
+
+@pytest.fixture(scope="module")
+def jbank(synth):
+    return train_bank(SyntheticAdapter(synth), ["aa"], JC.PipelineConfig())
+
+
+@pytest.fixture(scope="module")
+def tbank(jbank):
+    return bank_from_numpy(
+        np.asarray(jbank.templates), np.asarray(jbank.background),
+        jbank.labels, device="cpu",
+    )
+
+
+def _per_utt(result):
+    d = result.detections
+    out = []
+    for ui in range(len(result.utt_ids)):
+        sel = d.utterance_ids == ui
+        order = np.lexsort((d.template_ids[sel], d.times[sel]))
+        out.append((d.scores[sel][order], d.times[sel][order],
+                    d.template_ids[sel][order]))
+    return out
+
+
+def test_scan_detections_match_reference(synth, jbank, tbank):
+    """Identical detections (times and template ids) with scores at
+    rtol 1e-5; batch_size 3 over 7 utterances exercises the tail."""
+    jcfg = JC.PipelineConfig(detect=JC.DetectConfig(batch_size=3))
+    tcfg = TC.PipelineConfig(detect=TC.DetectConfig(batch_size=3))
+    want = jax_detect_corpus_stream(SyntheticAdapter(synth), jbank, jcfg, "aa")
+    got = tscan.detect_corpus_stream(TAdapter(synth), tbank, tcfg, "aa")
+    assert got.utt_ids == want.utt_ids
+    assert len(got.detections.scores) == len(want.detections.scores) > 0
+    for (sg, tg, kg), (sw, tw, kw) in zip(_per_utt(got), _per_utt(want)):
+        np.testing.assert_array_equal(tg, tw)
+        np.testing.assert_array_equal(kg, kw)
+        np.testing.assert_allclose(sg, sw, rtol=1e-5)
+    for lg, lw in zip(got.labels_per_utterance, want.labels_per_utterance):
+        np.testing.assert_array_equal(lg, lw)
+    assert got.audio_seconds == pytest.approx(want.audio_seconds)
+    for key in ("utterances", "frames", "windows_scored", "detections"):
+        assert got.counters[key] == want.counters[key]
+    assert got.counters["audio_s_per_s"] > 0
+    assert got.counters["batches"] == 3
+
+
+def test_scan_feature_maps_match_reference(synth):
+    """The scan's frontend, at the default config and bucket, agrees
+    with the JAX CPU frontend on >= 99.9% of the valid cells."""
+    wavs = [u.waveform for u in synth.utterances]
+    pad = max(tscan.bucket_length(len(w)) for w in wavs)
+    x = np.zeros((len(wavs), pad), np.float32)
+    for i, w in enumerate(wavs):
+        x[i, : len(w)] = w
+    lens = np.asarray([len(w) for w in wavs], np.int32)
+    fm = tplanes.frontend_batch_flat(
+        torch.from_numpy(x), torch.from_numpy(lens), TC.FrontendConfig()
+    )
+    jfm = jplanes.frontend_batch_flat(
+        jnp.asarray(x), jnp.asarray(lens), JC.FrontendConfig()
+    )
+    got, want = fm.binary.numpy(), np.asarray(jfm.binary)
+    valid = fm.valid_frames.numpy()
+    agree = sum(int(np.sum(got[i, :v] == want[i, :v])) for i, v in enumerate(valid))
+    total = sum(got[i, :v].size for i, v in enumerate(valid))
+    assert agree / total >= 0.999
+
+
+@pytest.mark.parametrize("detect_kw", [
+    {"dtw_rescore": True}, {"score_backend": "conv"}, {"int8_spectra": True},
+    {"exact_scores": True},
+])
+def test_unported_options_raise(synth, tbank, detect_kw):
+    cfg = TC.PipelineConfig(detect=TC.DetectConfig(**detect_kw))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tscan.detect_corpus_stream(TAdapter(synth), tbank, cfg, "aa")
+
+
+def test_manifest_and_pcm16_upload_raise(synth, tbank, monkeypatch):
+    cfg = TC.PipelineConfig()
+    with pytest.raises(NotImplementedError, match="manifest"):
+        tscan.detect_corpus_stream(TAdapter(synth), tbank, cfg, "aa",
+                                   manifest=object())
+    monkeypatch.setenv("SCAN_UPLOAD_INT16", "1")
+    with pytest.raises(NotImplementedError, match="PCM16"):
+        tscan.detect_corpus_stream(TAdapter(synth), tbank, cfg, "aa")
+
+
+def test_config_json_round_trip():
+    cfg = TC.PipelineConfig(detect=TC.DetectConfig(batch_size=5, top_k=9))
+    assert TC.from_json(TC.to_json(cfg)) == cfg
+    jcfg = JC.PipelineConfig(detect=JC.DetectConfig(batch_size=5, top_k=9))
+    assert TC.from_json(JC.to_json(jcfg)) == cfg
+
+
+def _port_modules():
+    root = os.path.join(REPO, PKG)
+    mods = []
+    for dirpath, _dirs, files in os.walk(root):
+        for name in files:
+            if name.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, name), REPO)
+                mods.append(rel[:-3].replace(os.sep, ".").removesuffix(".__init__"))
+    return sorted(mods)
+
+
+def test_port_imports_without_jax():
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'template_speech_recognition_tpu'"
+        " or m.startswith('template_speech_recognition_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_port_sources_name_no_jax_import():
+    pat = re.compile(
+        r"^\s*(import|from)\s+(jax|template_speech_recognition_tpu)(\.|\s|$)",
+        re.M,
+    )
+    root = os.path.join(REPO, PKG)
+    hits = []
+    for dirpath, _dirs, files in os.walk(root):
+        for name in files:
+            if name.endswith(".py"):
+                with open(os.path.join(dirpath, name)) as f:
+                    hits += [(name, m.group(0)) for m in pat.finditer(f.read())]
+    assert not hits, hits
+
+
+def test_cli_detect(tmp_path, capsys, jbank):
+    from template_speech_recognition_tpu_torch.cli import main
+
+    bank_path = str(tmp_path / "bank.npz")
+    jbank.save(bank_path)
+    out = str(tmp_path / "dets.npz")
+    assert main(["detect", "--bank", bank_path, "--phone", "aa",
+                 "--device", "cpu", "--out", out]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(line) == {"num_detections", "audio_seconds", "audio_s_per_s", "out"}
+    z = np.load(out)
+    assert len(z["scores"]) == line["num_detections"] > 0
+    assert np.all(np.isfinite(z["scores"]))
+
+
+def test_bank_load_and_llr_match_reference(tmp_path, jbank):
+    from template_speech_recognition_tpu_torch.models.bank import TemplateBank
+
+    path = str(tmp_path / "bank.npz")
+    jbank.save(path)
+    bank = TemplateBank.load(path, device="cpu")
+    assert bank.labels == jbank.labels
+    assert (bank.num_templates, bank.template_length) == (
+        jbank.num_templates, jbank.template_length)
+    np.testing.assert_array_equal(bank.templates.numpy(), np.asarray(jbank.templates))
+    (w, c), (jw, jc) = bank.llr(), jbank.llr()
+    np.testing.assert_allclose(w.numpy(), np.asarray(jw), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(c.numpy(), np.asarray(jc), rtol=1e-5)
