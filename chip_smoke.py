@@ -3,25 +3,34 @@
 
     python3 chip_smoke.py
 
-1. builds the five CUDA kernels of the detection scan from
-   ``template_speech_recognition_tpu_torch/csrc`` (one nvcc each, all
-   started together);
+1. builds the eight CUDA kernels of the detection scan from
+   ``template_speech_recognition_tpu_torch/csrc`` (one nvcc per source,
+   all started together);
 2. calls each kernel's wrapper on the card at the shapes the scan gives
    it (8 utterances of 30 s: T_pad = 3072, F = 256, D = 2048, K = 1024
-   templates of L = 32, nfft = 159) and holds the result against its
-   plain PyTorch version on the same inputs, with the tolerance stated
-   beside each check; times kernel, plain version and one library call
-   with CUDA events (median of 10 after 2 warm-ups) and computes each
-   kernel's bound (the larger of bytes / 3.35 TB/s and operations / the
-   peak rate of their type);
+   templates of L = 32, nfft = 159; for the DTW rescore 8 x 123 peaks,
+   windows of m = 40 frames) and holds the result against its plain
+   PyTorch version on the same inputs, with the tolerance stated beside
+   each check; times kernel, plain version and one library call with
+   CUDA events (median of 10 after 2 warm-ups; the two short DTW
+   kernels and their library call over loops of 100 launches) and
+   computes each kernel's bound (the larger of the least bytes / 3.35
+   TB/s and operations / the peak rate of their type);
    It also runs every kernel once at small ragged shapes (partial
-   tiles, odd nfft, an utterance with no valid row, ties and -0.0) and
-   holds it against its plain version;
+   tiles, odd nfft, an utterance with no valid row, ties and -0.0,
+   DTW at L = 32, 48, 96, 128 and 200 with ragged segment lengths and band
+   1, LLR windows past the map's end) and holds it against its plain
+   version;
 3. drives the scan itself, ``detect_corpus_stream``, at full width over
    19 utterances of 30 s (two batches of 8 and a tail of 3 padded to
    4, whose padding row has no valid frame), with every launch count
    set to 0 just before and read just after, and holds its detections
-   against the same scan on the plain versions.
+   against the same scan on the plain versions: first the default scan
+   (bf16 spectra), then the scan with DTW rescoring (config 4,
+   verify-the-winner) on int8 template spectra (config 5);
+4. runs the exhaustive DTW rescore (``DTWConfig.top_r = 0``: every peak
+   against all 1024 templates) on one batch of 8 against the plain
+   versions.
 
 Any failed check exits non-zero without printing the result line.  The
 last three lines are the kernels JSON, the card's name and power
@@ -35,6 +44,7 @@ import json
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -44,6 +54,9 @@ K, L = 1024, 32
 HBM_BPS = 3.35e12          # H100 SXM device memory, bytes/s
 FP32_FLOPS = 67e12         # fp32 outside the tensor cores
 BF16_FLOPS = 989e12        # bf16 tensor cores, dense
+INT8_OPS = 1979e12         # int8 tensor cores, dense
+STEMS = ("frontend_planes", "select_binspread", "fft_gemm", "banded_dtw", "pair_llr",
+         "fft_binmm_int8")
 
 
 class CheckFailed(Exception):
@@ -63,7 +76,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, reps=10, warm=2) -> float:
+def time_ms(torch, fn, reps=10, warm=2, loop=1) -> float:
+    """Median over ``reps`` of the event time of ``loop`` back-to-back
+    calls, divided by ``loop``.  Kernels of tens of microseconds take
+    ``loop=100``, so that the device runs ahead of the wrapper's host
+    work and the events time the launches, not the enqueue."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -72,11 +89,24 @@ def time_ms(torch, fn, reps=10, warm=2) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(loop):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / loop)
     return float(np.median(times))
+
+
+def host_us(torch, fn, loop=100) -> float:
+    """Host time per call of ``fn`` (the enqueue), in microseconds: a
+    looped event time above it is the device's."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(loop):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / loop * 1e6
 
 
 def bound_ms(nbytes: float, ops: float, rate: float):
@@ -138,7 +168,51 @@ def check_planes(torch, frames, nfft, got, want, name):
     return scaled, err, share
 
 
-def small_shape_checks(torch, dev, k1, k2, k3, k4, k5, fp, fs):
+def check_terminals(torch, got, ref, name):
+    """DTW terminals: bitwise where the plain version is finite, both
+    > 1e38 (unreachable) elsewhere."""
+    finite = ref < 1e37
+    check(bool(finite.any()), f"{name}: no reachable terminal")
+    check(bool(torch.equal(got[finite], ref[finite])), f"{name}: finite terminals not bitwise")
+    check(bool((got[~finite] > 1e38).all()), f"{name}: unreachable terminals differ")
+    return int((~finite).sum())
+
+
+def band_cells(torch, length, m, lens, band) -> int:
+    """In-band DTW cells before each pair's seg_len: the cost cells the
+    recurrence reads (the integer band test of ops/dtw_kernel.py)."""
+    dev = lens.device
+    i = torch.arange(length, device=dev)[None, :, None]
+    j = torch.arange(m, device=dev)[None, None, :]
+    ln = lens.long()[:, None, None]
+    lm1 = max(length - 1, 1)
+    return int(((j < ln) & ((j * lm1 - i * (ln - 1).clamp(min=1)).abs()
+                            <= band * lm1)).sum())
+
+
+def match_detections(got, want):
+    """Peaks of two scans matched on (utterance, time) -> (matched share
+    of the larger set, same-template share of the matched, max |score
+    difference| over same-template matches, max |score| of ``want``)."""
+    matched = same = 0
+    diff = 0.0
+    for ui in np.unique(np.concatenate([got.utterance_ids, want.utterance_ids])):
+        a = {t: (k, s) for s, t, k in zip(got.scores[got.utterance_ids == ui].tolist(),
+                                          got.times[got.utterance_ids == ui].tolist(),
+                                          got.template_ids[got.utterance_ids == ui].tolist())}
+        b = {t: (k, s) for s, t, k in zip(want.scores[want.utterance_ids == ui].tolist(),
+                                          want.times[want.utterance_ids == ui].tolist(),
+                                          want.template_ids[want.utterance_ids == ui].tolist())}
+        for t in set(a) & set(b):
+            matched += 1
+            if a[t][0] == b[t][0]:
+                same += 1
+                diff = max(diff, abs(a[t][1] - b[t][1]))
+    frac = matched / max(len(got.scores), len(want.scores), 1)
+    return frac, same / max(matched, 1), diff, float(np.max(np.abs(want.scores)))
+
+
+def small_shape_checks(torch, dev, k1, k2, k3, k4, k5, kp, kd, fp, fs):
     """Each kernel once at small ragged shapes (the CPU tests' sizes:
     nfft 256 -> F = 128, D = 1024, K = 128, L = 8 -> nfft 39, hop 32),
     against its plain version on the same inputs."""
@@ -186,6 +260,42 @@ def small_shape_checks(torch, dev, k1, k2, k3, k4, k5, fp, fs):
     close(k5.fft_idft(ycat, imat, c, nblk), k5.fft_idft_plain(ycat, imat, c, nblk),
           1e-5, "fft_idft")
 
+    # int8 bin matmul, bitwise: K, 2m and 2D not multiples of the tile
+    for shape in ((3, 50, 48), (3, 2, 25, 48)):
+        xq_r = torch.randint(-127, 128, shape, dtype=torch.int8, device=dev)
+        xq_i = torch.randint(-127, 128, shape, dtype=torch.int8, device=dev)
+        w28 = torch.randint(-127, 128, (3, 96, 132), dtype=torch.int8, device=dev)
+        sc8 = torch.rand(3, 132, device=dev) * 1e-3
+        check(bool(torch.equal(k4.fft_binmm_int8(xq_r, xq_i, w28, sc8),
+                               k4.fft_binmm_int8_plain(xq_r, xq_i, w28, sc8))),
+              f"fft_binmm_int8 (small, {shape}): not bitwise")
+
+    # pair LLR: windows into the next utterance and past the map's end,
+    # L and m not multiples of the 32 x 40 output tile
+    for bb, tt, dd, kk, length, mm in ((2, 50, 64, 5, 6, 16), (3, 40, 96, 4, 40, 48)):
+        fmap = torch.from_numpy(rng.random((bb, tt, dd)) < 0.3).to(dev)
+        wq = torch.randn(kk, length, dd, device=dev).to(torch.bfloat16)
+        rs = torch.tensor([0, 3, tt - 4, tt + 5, bb * tt - 9, bb * tt - 2, bb * tt - 1],
+                          dtype=torch.int32, device=dev)
+        ids = torch.tensor([0, kk - 1, 1, 2, 3, 0, 1], dtype=torch.int32, device=dev) % kk
+        close(kp.pair_llr(fmap, wq, rs, ids, mm), kp.pair_llr_plain(fmap, wq, rs, ids, mm),
+              1e-5, f"pair_llr (L={length}, m={mm})")
+
+    # banded DTW: the TPU's packed (L 32), band (L 96) and full (L 128)
+    # regimes, and L 48 and 200 (2 and 8 rows a lane); ragged seg_lens
+    # from 1 to M, pair counts that are not multiples of a block; band 1
+    # leaves terminals unreachable
+    for length, m, band, n in ((32, 40, 6, 37), (32, 40, 1, 37), (48, 56, 6, 21),
+                               (96, 104, 6, 19), (128, 136, 64, 13), (200, 40, 3, 5)):
+        cost = torch.from_numpy(
+            (rng.standard_normal((n, length, m)) + 2.0).astype(np.float32)).to(dev)
+        lens_np = rng.integers(1, m + 1, n).astype(np.int32)
+        lens_np[0], lens_np[1], lens_np[-1] = 1, m + 5, m     # m + 5: no terminal cell
+        lens = torch.from_numpy(lens_np).to(dev)
+        check_terminals(torch, kd.banded_dtw(cost, lens, band),
+                        kd.banded_dtw_plain(cost, lens, band),
+                        f"banded_dtw (small, L={length}, band={band})")
+
 
 def main() -> int:
     import torch
@@ -204,10 +314,12 @@ def main() -> int:
     from template_speech_recognition_tpu_torch.frontend import planes as fp
     from template_speech_recognition_tpu_torch.ops import _cuda
     from template_speech_recognition_tpu_torch.ops import (
+        dtw_kernel as kd,
         fft_binmm_kernel as k4,
         fft_dft_kernel as k3,
         fft_idft_kernel as k5,
         frontend_kernel as k1,
+        pair_llr_kernel as kp,
         selbin_kernel as k2,
     )
     from template_speech_recognition_tpu_torch.ops.dft import dft_matrices
@@ -228,7 +340,7 @@ def main() -> int:
 
     # ---- build ---------------------------------------------------------
     t0 = time.perf_counter()
-    logs = _cuda.build(["frontend_planes", "select_binspread", "fft_gemm"])
+    logs = _cuda.build(STEMS)
     say(f"build: {time.perf_counter() - t0:.1f} s for {sorted(logs) or 'cached'}")
     for stem, log in sorted(logs.items()):
         for line in log.splitlines():
@@ -401,8 +513,111 @@ def main() -> int:
     del planes, planes_ref, s_k, s_p
     torch.cuda.empty_cache()
 
-    small_shape_checks(torch, dev, k1, k2, k3, k4, k5, fp, fs)
-    say("small ragged shapes: all five kernels agree with their plain versions")
+    # ---- the DTW + int8 scan's kernels ---------------------------------
+    # int8 bin matmul on the block spectra of kernel 3, quantized as the
+    # scorer does; bitwise (exact int32 sums, same f32 flush and bf16
+    # rounding)
+    fbank8 = fs.build_fft_bank(filters_to_flat(wf), cf, mm_dtype=torch.int8)
+    xq_r, xq_i, sc8 = fs.quantize_block_spectra(xr, xi, fbank8.w2_scale)
+    y8 = k4.fft_binmm_int8(xq_r, xq_i, fbank8.w2, sc8)
+    y8_ref = k4.fft_binmm_int8_plain(xq_r, xq_i, fbank8.w2, sc8)
+    check(bool(torch.equal(y8, y8_ref)), "fft_binmm_int8: not bitwise")
+    record(
+        SimpleNamespace(NAME=k4.INT8_NAME, SOURCE=k4.INT8_SOURCE, REPLACES=k4.INT8_REPLACES),
+        float((y8.float() - y8_ref.float()).abs().max()), "bitwise",
+        time_ms(torch, lambda: k4.fft_binmm_int8(xq_r, xq_i, fbank8.w2, sc8)),
+        time_ms(torch, lambda: k4.fft_binmm_int8_plain(xq_r, xq_i, fbank8.w2, sc8)),
+        None,      # PyTorch has no batched int8 x int8 -> int32 product
+        2 * bins * m * d + fbank8.w2.numel() + sc8.numel() * 4 + 2 * bins * m * K * 2,
+        2 * (2 * m) * (2 * d) * K * bins, INT8_OPS,
+    )
+    del y8, y8_ref, xq_r, xq_i
+
+    # pair LLR tiles of the verify-the-winner rescore: B x top-K peaks,
+    # windows of m_seg = L + band frames rounded up to 8
+    top_k = cfg.detect.effective_top_k(pad, corpus.sample_rate)
+    band = cfg.dtw.band
+    m_seg = L + band
+    m_llr = -(-m_seg // 8) * 8
+    n_pairs = B * top_k
+    check((top_k, m_llr) == (123, 40), f"top_k {top_k}, m {m_llr}")
+    w_rows, c_rows = bank.llr_rows()
+    w16 = filters_to_flat(w_rows).to(torch.bfloat16).contiguous()        # [K, L, D]
+    fmap = flat.reshape(B, t_pad, d).to(torch.bool)
+    times = torch.from_numpy(rng.integers(0, int(valid.min()), (B, top_k))).to(dev)
+    ids = torch.from_numpy(rng.integers(0, K, n_pairs).astype(np.int32)).to(dev)
+    rowstart = (torch.arange(B, device=dev)[:, None] * t_pad + times).reshape(-1).to(torch.int32)
+    args_p = (fmap, w16, rowstart, ids, m_llr)
+    llr = kp.pair_llr(*args_p)
+    llr_ref = kp.pair_llr_plain(*args_p)
+    err_p = float((llr - llr_ref).abs().max())
+    ref_p = float(llr_ref.abs().max())
+    check(err_p <= 1e-5 * ref_p, f"pair_llr: {err_p} > 1e-5 * {ref_p}")
+    rows_g = rowstart.long()[:, None] + torch.arange(m_llr, device=dev)
+    seg_g = fmap.reshape(B * t_pad, d)[rows_g.clamp(max=B * t_pad - 1)].to(torch.bfloat16)
+    wk_g = w16[ids.long()]
+    # least bytes: each distinct map row the windows cover and each
+    # distinct filter the ids name, read once (rows past the map's end
+    # read as zero and need no read), plus rowstart, ids and the tiles
+    covered = torch.zeros(B * t_pad, dtype=torch.bool, device=dev)
+    covered[rows_g[rows_g < B * t_pad]] = True
+    n_rows_p, n_ids_p = int(covered.sum()), int(torch.unique(ids).numel())
+    bytes_p = n_rows_p * d + n_ids_p * L * d * 2 + n_pairs * 8 + llr.numel() * 4
+    record(
+        kp, err_p, "1e-5 * max|ref|",
+        time_ms(torch, lambda: kp.pair_llr(*args_p), loop=100),
+        time_ms(torch, lambda: kp.pair_llr_plain(*args_p)),
+        time_ms(torch, lambda: torch.bmm(wk_g, seg_g.transpose(1, 2)), loop=100),
+        bytes_p, 2 * n_pairs * L * m_llr * d, BF16_FLOPS,
+    )
+    host_p = host_us(torch, lambda: kp.pair_llr(*args_p))
+    say(f"pair_llr: {n_rows_p} distinct map rows, {n_ids_p} distinct templates, "
+        f"{bytes_p / 1e6:.1f} MB least bytes; host {host_p:.1f} us a call (the looped "
+        f"event time is the device's where it is larger)")
+    del seg_g, wk_g, covered
+
+    # banded DTW on those tiles as the rescore makes them; bitwise on
+    # finite terminals
+    cost = -(llr + c_rows[ids.long()][:, :, None])
+    lens = torch.clamp(valid.long()[:, None] - times, 1, m_seg).reshape(-1).to(torch.int32)
+    tot = kd.banded_dtw(cost, lens, band)
+    tot_ref = kd.banded_dtw_plain(cost, lens, band)
+    n_unreach = check_terminals(torch, tot, tot_ref, "banded_dtw")
+    cells = band_cells(torch, L, m_llr, lens, band)
+    record(
+        kd, 0.0, "bitwise on finite terminals",
+        time_ms(torch, lambda: kd.banded_dtw(cost, lens, band), loop=100),
+        time_ms(torch, lambda: kd.banded_dtw_plain(cost, lens, band)),
+        None,      # no single PyTorch call computes a banded DTW
+        # least bytes: the in-band cost cells before seg_len, lens, out
+        cells * 4 + lens.numel() * 4 + tot.numel() * 4,
+        4 * cells, FP32_FLOPS,     # one add and three minimums per in-band cell
+    )
+    host_d = host_us(torch, lambda: kd.banded_dtw(cost, lens, band))
+    say(f"banded_dtw: {n_pairs} pairs, {cells} in-band cells, {n_unreach} unreachable; "
+        f"host {host_d:.1f} us a call; the bound above counts bytes and operations, the kernel is held by its "
+        f"chain of L + seg_len - 1 = {L + m_seg - 1} dependent diagonals a pair")
+    # the same kernel in the TPU's "band"/"full" regime (L > 64): 984
+    # pairs of L = 96 templates, band 6 -> windows of 102 frames
+    l96, m96 = 96, 104
+    cost96 = torch.from_numpy(
+        (rng.standard_normal((n_pairs, l96, m96)) + 2.0).astype(np.float32)).to(dev)
+    lens96 = torch.from_numpy(
+        rng.integers((l96 + band) // 2, l96 + band + 1, n_pairs).astype(np.int32)).to(dev)
+    check_terminals(torch, kd.banded_dtw(cost96, lens96, band),
+                    kd.banded_dtw_plain(cost96, lens96, band), "banded_dtw (L=96)")
+    ms96 = time_ms(torch, lambda: kd.banded_dtw(cost96, lens96, band), loop=100)
+    plain96 = time_ms(torch, lambda: kd.banded_dtw_plain(cost96, lens96, band))
+    cells96 = band_cells(torch, l96, m96, lens96, band)
+    b96, _by = bound_ms(cells96 * 4 + n_pairs * 8, 4 * cells96, FP32_FLOPS)
+    say(f"banded_dtw at L = {l96} ({n_pairs} pairs, band {band}, M = {m96}): bitwise; "
+        f"kernel {ms96:.4f} ms plain {plain96:.4f} ms bound {b96:.4f} ms (bytes; the "
+        f"chain is up to {l96 + l96 + band - 1} diagonals)")
+    del llr, llr_ref, cost, cost96, fbank8
+    torch.cuda.empty_cache()
+
+    small_shape_checks(torch, dev, k1, k2, k3, k4, k5, kp, kd, fp, fs)
+    say("small ragged shapes: all eight kernels agree with their plain versions")
 
     # ---- the scan at full width ---------------------------------------
     scan_cfg = C.PipelineConfig(detect=C.DetectConfig(batch_size=B))
@@ -416,7 +631,7 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _cuda.launch_counts()
-    for row in rows:
+    for row in rows[:5]:
         row["launches"] = int(counts.get(row["name"], 0))
         check(row["launches"] > 0, f"{row['name']} was not launched by the scan")
     ctr = res.counters
@@ -432,21 +647,76 @@ def main() -> int:
     ref = detect_corpus_stream(corpus, bank, scan_cfg, target_phone="aa", plain=True)
     dk, dp = res.detections, ref.detections
     check(len(dk.scores) > 0 and bool(np.isfinite(dk.scores).all()), "no detections")
-    matched = same_id = 0
-    for ui in range(len(res.utt_ids)):
-        a = dict(zip(dk.times[dk.utterance_ids == ui].tolist(),
-                     dk.template_ids[dk.utterance_ids == ui].tolist()))
-        b = dict(zip(dp.times[dp.utterance_ids == ui].tolist(),
-                     dp.template_ids[dp.utterance_ids == ui].tolist()))
-        common = set(a) & set(b)
-        matched += len(common)
-        same_id += sum(a[tt] == b[tt] for tt in common)
-    frac = matched / max(len(dk.scores), len(dp.scores))
-    id_frac = same_id / max(matched, 1)
+    frac, id_frac, _diff, _top = match_detections(dk, dp)
     say(f"scan vs plain scan: {len(dk.scores)} vs {len(dp.scores)} detections, "
         f"{frac:.4f} matched peaks, {id_frac:.4f} same template on matched")
     check(frac >= 0.99, f"matched peaks {frac} < 0.99")
     check(id_frac >= 0.99, f"template ids agree on {id_frac} < 0.99 of matched")
+    del res, ref
+
+    # ---- the DTW + int8 scan at full width (configs 4 and 5) -----------
+    dtw_cfg = C.PipelineConfig(detect=C.DetectConfig(
+        batch_size=B, dtw_rescore=True, int8_spectra=True))
+    check(dtw_cfg.dtw.top_r == 1, "verify-the-winner is the default")
+    detect_corpus_stream(corpus.head(B), bank, dtw_cfg, target_phone="aa")   # warm-up
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    res = detect_corpus_stream(corpus, bank, dtw_cfg, target_phone="aa")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _cuda.launch_counts()
+    for name in ("frontend_planes", "select_binspread", "fft_block_dft", "fft_binmm_int8",
+                 "fft_idft", "pair_llr", "banded_dtw"):
+        check(counts.get(name, 0) > 0, f"{name} was not launched by the DTW + int8 scan")
+    check(counts.get("fft_binmm", 0) == 0, "the int8 scan launched the bf16 bin matmul")
+    for row in rows[5:]:
+        row["launches"] = int(counts.get(row["name"], 0))
+    ctr = res.counters
+    stages = " ".join(
+        f"{s} {ctr.get(f'device_ms_{s}', 0.0) / ctr['batches']:.3f} ms"
+        for s in ("frontend", "score", "nms", "dtw")
+    )
+    say(f"DTW + int8 scan: {ctr['utterances']:.0f} utterances, "
+        f"{ctr['audio_seconds']:.1f} audio-s, {ctr['audio_s_per_s']:.1f} audio-s/s (scan "
+        f"loop {ctr['time_scan_s']:.4f} s; with the bank build {wall:.4f} s); mean device "
+        f"time per batch ({ctr['batches']:.0f} batches): {stages} (CUDA events); "
+        f"launches {counts}")
+    ref = detect_corpus_stream(corpus, bank, dtw_cfg, target_phone="aa", plain=True)
+    dk, dp = res.detections, ref.detections
+    check(len(dk.scores) > 0 and bool(np.isfinite(dk.scores).all()), "no DTW detections")
+    frac, id_frac, diff, top = match_detections(dk, dp)
+    say(f"DTW + int8 scan vs plain scan: {len(dk.scores)} vs {len(dp.scores)} detections, "
+        f"{frac:.4f} matched peaks, {id_frac:.4f} same template on matched, DTW score "
+        f"max diff {diff:.6g} = {diff / top:.3g} of max|score| {top:.6g} (tolerance 1e-4)")
+    check(frac >= 0.99, f"DTW + int8: matched peaks {frac} < 0.99")
+    check(id_frac >= 0.99, f"DTW + int8: template ids agree on {id_frac} < 0.99")
+    check(diff <= 1e-4 * top, f"DTW + int8: scores differ by {diff} > 1e-4 * {top}")
+    del res, ref
+
+    # ---- exhaustive rescoring (top_r = 0) on one batch -----------------
+    ex_cfg = C.PipelineConfig(detect=C.DetectConfig(batch_size=B, dtw_rescore=True),
+                              dtw=C.DTWConfig(top_r=0))
+    head = corpus.head(B)
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    res = detect_corpus_stream(head, bank, ex_cfg, target_phone="aa")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _cuda.launch_counts()
+    check(counts.get("banded_dtw", 0) > 0, "exhaustive rescore did not launch banded_dtw")
+    ctr = res.counters
+    ref = detect_corpus_stream(head, bank, ex_cfg, target_phone="aa", plain=True)
+    dk, dp = res.detections, ref.detections
+    check(len(dk.scores) > 0 and bool(np.isfinite(dk.scores).all()), "no exhaustive detections")
+    frac, id_frac, diff, top = match_detections(dk, dp)
+    say(f"exhaustive rescore (top_r 0, {B} x {top_k} peaks x {K} templates): {wall:.3f} s, "
+        f"dtw stage {ctr.get('device_ms_dtw', 0.0):.3f} ms (CUDA events), launches {counts}; "
+        f"vs plain: {frac:.4f} matched peaks, {id_frac:.4f} same template, score max diff "
+        f"{diff:.6g} = {diff / top:.3g} of max|score| (tolerance 1e-4)")
+    check(frac >= 0.99, f"exhaustive: matched peaks {frac} < 0.99")
+    check(id_frac >= 0.99, f"exhaustive: (time, id) agree on {id_frac} < 0.99")
+    check(diff <= 1e-4 * top, f"exhaustive: scores differ by {diff} > 1e-4 * {top}")
 
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

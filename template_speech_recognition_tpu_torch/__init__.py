@@ -2,7 +2,9 @@
 
 The JAX package ``template_speech_recognition_tpu`` is the reference;
 this package re-implements its streaming FFT detection scan in PyTorch,
-with every kernel on that path written by hand in CUDA C++ for Hopper
+with DTW rescoring of the peaks (config 4) and int8 template spectra
+(config 5), every kernel on that path written by hand in CUDA C++ for
+Hopper
 (``csrc/``, built with ``nvcc`` at first use).  It imports torch and
 numpy only -- never jax, never the JAX package.
 

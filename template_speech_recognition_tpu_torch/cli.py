@@ -4,8 +4,11 @@
         --corpus synthetic --bank bank.npz --phone aa --out dets.npz
 
 ``--bank`` is the ``.npz`` that ``TemplateBank.save`` writes.  The flags
-and the one JSON line printed match the reference's ``detect``; the
-other subcommands are later work (ROADMAP.md Queue 1, item 10).
+and the one JSON line printed match the reference's ``detect``,
+including ``--dtw-rescore`` (config 4), ``--dtw-top-r`` and
+``--int8-spectra``; ``--exact``, ``--score-backend`` and ``--manifest``
+are not ported yet, and the other subcommands are later work
+(ROADMAP.md Queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -38,8 +41,16 @@ def _load_config(args):
 
     if args.config:
         with open(args.config) as f:
-            return C.from_json(f.read())
-    return C.PipelineConfig()
+            cfg = C.from_json(f.read())
+    else:
+        cfg = C.PipelineConfig()
+    if args.dtw_rescore:
+        cfg = C.override(cfg, detect=C.override(cfg.detect, dtw_rescore=True))
+    if args.dtw_top_r is not None:
+        cfg = C.override(cfg, dtw=C.override(cfg.dtw, top_r=args.dtw_top_r))
+    if args.int8_spectra:
+        cfg = C.override(cfg, detect=C.override(cfg.detect, int8_spectra=True))
+    return cfg
 
 
 def cmd_detect(args) -> int:
@@ -75,13 +86,21 @@ def cmd_detect(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="template_speech_recognition_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
-    d = sub.add_parser("detect", help="scan a corpus (configs 1-2)")
+    d = sub.add_parser("detect", help="scan a corpus (configs 1-2, 4)")
     d.add_argument("--corpus", default="synthetic", help="synthetic")
     d.add_argument("--config", default=None, help="JSON PipelineConfig")
     d.add_argument("--seed", type=int, default=0)
     d.add_argument("--bank", required=True, help="bank .npz")
     d.add_argument("--phone", required=True, help="target phone for labels")
     d.add_argument("--out", default=None, help="detections .npz path")
+    d.add_argument("--dtw-top-r", type=int, default=None,
+                   help="DTW rescore scope: 0 exhaustive, 1 verify-the-winner "
+                        "(the config default; constant in bank size)")
+    d.add_argument("--dtw-rescore", action="store_true",
+                   help="config 4: DTW-rescore the top-K peaks")
+    d.add_argument("--int8-spectra", action="store_true",
+                   help="int8-quantized template spectra (config-5 bank "
+                        "scale; half the W2 stream)")
     d.add_argument("--device", default=None,
                    help="cuda (default; raises without a GPU) or cpu")
     d.set_defaults(fn=cmd_detect)

@@ -36,11 +36,13 @@ def bank_from_numpy(templates, background, labels, device=None) -> TemplateBank:
 
 
 def fft_bank_from_numpy(w2, c, length: int, nfft: int, d: int,
-                        device=None) -> FFTBank:
+                        device=None, w2_scale=None) -> FFTBank:
     """A JAX-built ``FFTBank``'s spectra ``w2`` [bins, 2D, K] (dtype
-    kept: float32 or bfloat16) and offsets ``c`` [K]."""
+    kept: float32, bfloat16 or int8), offsets ``c`` [K] and, for int8
+    spectra, their scales ``w2_scale`` [bins, K]."""
     dev = resolve_device(device)
     return FFTBank(
         w2=_tensor(w2, dev), c=_tensor(c, dev, torch.float32),
         length=int(length), nfft=int(nfft), d=int(d),
+        w2_scale=None if w2_scale is None else _tensor(w2_scale, dev, torch.float32),
     )

@@ -16,6 +16,14 @@ are computed as GEMMs in the frequency domain:
 Numerics follow the reference: on the card every GEMM operand is bf16
 (``g``, ``imat``, ``w2``, the map, ``xr``/``xi``, ``ycat``) with fp32
 accumulation; on the CPU everything is float32.
+
+int8 spectra (``build_fft_bank(mm_dtype=torch.int8)``, the config-5
+bank-scale mode): W2 is quantized per (bin, template) once, the block
+spectra ``xr``/``xi`` per bin on every call over the call's whole
+extent, and step 2 runs int8 x int8 with exact int32 accumulation
+(``ops.fft_binmm_kernel.fft_binmm_int8``), dequantized at its flush.
+The DFT and the iDFT keep the working type (bf16 on the card, float32
+on the CPU).
 """
 
 from __future__ import annotations
@@ -27,6 +35,8 @@ import torch
 
 from template_speech_recognition_tpu_torch.ops.fft_binmm_kernel import (
     fft_binmm,
+    fft_binmm_int8,
+    fft_binmm_int8_plain,
     fft_binmm_plain,
 )
 from template_speech_recognition_tpu_torch.ops.fft_dft_kernel import (
@@ -53,13 +63,16 @@ def pick_nfft(length: int, bank_k: int = 0) -> int:
 class FFTBank:
     """Frequency-domain template bank: ``w2`` [bins, 2D, K] spectra
     (real stacked on imaginary along the contraction axis) and ``c``
-    [K] score offsets."""
+    [K] score offsets.  In the int8 mode ``w2`` holds the quantized
+    spectra and ``w2_scale`` [bins, K] f32 their dequantization
+    factors."""
 
     w2: torch.Tensor
     c: torch.Tensor
     length: int
     nfft: int
     d: int
+    w2_scale: torch.Tensor | None = None
 
     @property
     def k(self) -> int:
@@ -106,23 +119,46 @@ def build_fft_bank(w: torch.Tensor, c: torch.Tensor, nfft: int | None = None,
                    mm_dtype=None) -> FFTBank:
     """One-time per-bank setup: W [K, L, F, E] (or [K, L, D]) + c [K]
     -> frequency-domain bank.  ``mm_dtype=None`` picks bfloat16 on the
-    card (the kernels' operand type) and float32 on the CPU."""
+    card (the kernels' operand type) and float32 on the CPU;
+    ``torch.int8`` builds the int8 spectra: symmetric per-(bin,
+    template) scales ``max(max|w2| over 2D, 1e-30) / 127`` and
+    ``clip(round(w2 / scale), -127, 127)`` (round half to even, as the
+    reference)."""
     if mm_dtype is None:
         mm_dtype = torch.bfloat16 if w.device.type == "cuda" else torch.float32
-    if mm_dtype not in (torch.float32, torch.bfloat16):
-        raise NotImplementedError(
-            f"mm_dtype {mm_dtype}: int8 template spectra are not ported yet "
-            "(ROADMAP.md Queue 2, 'fft_binmm int8')"
-        )
+    if mm_dtype not in (torch.float32, torch.bfloat16, torch.int8):
+        raise ValueError(f"mm_dtype {mm_dtype}: float32, bfloat16 or int8")
     k, length = w.shape[0], w.shape[1]
     d = int(np.prod(w.shape[2:]))
     if nfft is None:
         nfft = pick_nfft(length, bank_k=k)
     if nfft - length + 1 <= 0:
         raise ValueError(f"nfft {nfft} too small for template length {length}")
+    if mm_dtype == torch.int8:
+        w2f = _bank_spectra(w.reshape(k, length, d), nfft, torch.float32)
+        scale = torch.clamp(w2f.abs().amax(dim=1), min=1e-30) / 127.0   # [bins, K]
+        w2q = torch.clamp(torch.round(w2f / scale[:, None, :]), -127, 127)
+        return FFTBank(w2=w2q.to(torch.int8).contiguous(), c=c.to(torch.float32),
+                       length=length, nfft=nfft, d=d, w2_scale=scale.contiguous())
     w2 = _bank_spectra(w.reshape(k, length, d), nfft, mm_dtype)
     return FFTBank(w2=w2.contiguous(), c=c.to(torch.float32), length=length,
                    nfft=nfft, d=d)
+
+
+def quantize_block_spectra(xr, xi, w2_scale):
+    """Dynamic per-bin symmetric int8 quantization of the block spectra
+    ``xr``, ``xi`` [bins, ...] over their whole extent -> (int8 xr, int8
+    xi, ``sc`` [bins, K] f32), where ``sc`` folds the block scale into
+    the bank's ``w2_scale`` for the bin matmul's flush."""
+    dims = tuple(range(1, xr.dim()))
+    xr32, xi32 = xr.to(torch.float32), xi.to(torch.float32)
+    sx = torch.clamp(
+        torch.maximum(xr32.abs().amax(dim=dims), xi32.abs().amax(dim=dims)), min=1e-30
+    ) / 127.0                                                   # [bins]
+    sxb = sx.reshape((-1,) + (1,) * len(dims))
+    xq_r = torch.clamp(torch.round(xr32 / sxb), -127, 127).to(torch.int8)
+    xq_i = torch.clamp(torch.round(xi32 / sxb), -127, 127).to(torch.int8)
+    return xq_r, xq_i, sx[:, None] * w2_scale
 
 
 def fft_sliding_scores(
@@ -142,8 +178,13 @@ def fft_sliding_scores(
     if not trim and not time_major:
         raise ValueError("trim=False requires time_major=True")
     length, nfft, d = bank.length, bank.nfft, bank.d
-    mm = bank.w2.dtype
     dev = feats.device
+    quant = bank.w2_scale is not None
+    if quant:
+        # only the bin matmul runs in int8
+        mm = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    else:
+        mm = bank.w2.dtype
     b, t = feats.shape[0], feats.shape[1]
     x = feats.reshape(b, t, d).to(mm).contiguous()
     tout = t - length + 1
@@ -157,12 +198,17 @@ def fft_sliding_scores(
 
     dft_fn = fft_block_dft_plain if plain else fft_block_dft
     binmm_fn = fft_binmm_plain if plain else fft_binmm
+    binmm_int8_fn = fft_binmm_int8_plain if plain else fft_binmm_int8
     idft_fn = fft_idft_plain if plain else fft_idft
 
     cmat, smat = _dft_mats(nfft, mm, dev)
     g = torch.cat([cmat, -smat], dim=1).contiguous()          # [nfft, 2*bins]
     xr, xi = dft_fn(x, g, nfft, hop, nblk)                     # [bins, B, nblk, D]
-    ycat = binmm_fn(xr, xi, bank.w2)                           # [2, bins, m, K]
+    if quant:
+        xq_r, xq_i, sc = quantize_block_spectra(xr, xi, bank.w2_scale)
+        ycat = binmm_int8_fn(xq_r, xq_i, bank.w2, sc, out_dtype=mm)
+    else:
+        ycat = binmm_fn(xr, xi, bank.w2)                       # [2, bins, m, K]
     icmat, ismat = _idft_mats(nfft, hop, mm, dev)
     imat = torch.cat([icmat, -ismat], dim=0).contiguous()     # [2*bins, hop]
     scores_t = idft_fn(ycat.reshape(2 * bins, m * k), imat, bank.c, nblk)

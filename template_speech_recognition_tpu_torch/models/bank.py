@@ -42,6 +42,13 @@ class TemplateBank:
         c = torch.sum(torch.log1p(-p) - torch.log1p(-q), dim=(1, 2, 3))
         return w, c
 
+    def llr_rows(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(W [K, L, F, E], c_rows [K, L]) -- per-row offsets for DTW."""
+        p, q = self.templates, self.background
+        w = (torch.log(p) - torch.log1p(-p)) - (torch.log(q) - torch.log1p(-q))
+        c_rows = torch.sum(torch.log1p(-p) - torch.log1p(-q), dim=(2, 3))
+        return w, c_rows
+
     @classmethod
     def load(cls, path: str, device=None) -> "TemplateBank":
         """Read a bank ``.npz`` (``templates``, ``background``, JSON

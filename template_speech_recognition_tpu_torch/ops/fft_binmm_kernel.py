@@ -18,6 +18,17 @@ is read from device memory once and from L2 by its neighbours.
 What bounds it on the H100: bf16 operations, closely followed by bytes.
 258 GFLOP (m=192, D=2048, K=1024, bins=80) take 0.26 ms at 989
 TFLOP/s; W2 (671 MB) plus xr/xi and the output take 0.23 ms.
+
+The int8 mode (``fft_binmm_int8``, the ``DetectConfig.int8_spectra``
+bank) replaces the same ``pallas_call`` running ``_kernel_q`` (line
+81): int8 x int8 -> exact int32, flushed as ``bf16(f32(acc) * sc[bin,
+k])``.  Its kernel (``csrc/fft_binmm_int8.cu``) keeps the tiling above
+on mma.sync m16n8k32 s8; W2 is K-contiguous, so each thread transposes
+4 x 4 bytes of it with byte permutes on the way into shared memory.
+What bounds it: bytes, 461 MB (int8 W2 336 MB, xr/xi, bf16 output) in
+0.138 ms at 3.35 TB/s; 258 G int8 operations take 0.130 ms at 1979
+TOP/s.  The TPU path's ``k <= 4096`` gate (a Mosaic crash) is not
+carried over.
 """
 
 from __future__ import annotations
@@ -29,6 +40,9 @@ from template_speech_recognition_tpu_torch.ops import _cuda
 NAME = "fft_binmm"
 SOURCE = "template_speech_recognition_tpu_torch/csrc/fft_gemm.cu"
 REPLACES = "template_speech_recognition_tpu/ops/fft_binmm_pallas.py:202"
+INT8_NAME = "fft_binmm_int8"
+INT8_SOURCE = "template_speech_recognition_tpu_torch/csrc/fft_binmm_int8.cu"
+INT8_REPLACES = "template_speech_recognition_tpu/ops/fft_binmm_pallas.py:81"
 
 
 def fft_binmm_plain(xr, xi, w2):
@@ -72,4 +86,59 @@ def fft_binmm(xr, xi, w2):
     )
     _cuda.check(lib, err, NAME)
     _cuda.count_launch(NAME)
+    return out
+
+
+def fft_binmm_int8_plain(xr, xi, w2, sc, out_dtype=torch.bfloat16):
+    """Plain PyTorch version of the int8 mode: the packed operand and
+    one float64 batched product, exact for int8 operands (every partial
+    sum is an integer below 2**53), then ``f32(acc) * sc`` rounded to
+    ``out_dtype``."""
+    bins, d = xr.shape[0], xr.shape[-1]
+    xr3 = xr.reshape(bins, -1, d).to(torch.float64)
+    xi3 = xi.reshape(bins, -1, d).to(torch.float64)
+    m = xr3.shape[1]
+    x2 = torch.cat(
+        [torch.cat([xr3, xi3], dim=2), torch.cat([xi3, -xr3], dim=2)], dim=1
+    )                                                      # [bins, 2m, 2D]
+    acc = torch.bmm(x2, w2.to(torch.float64))              # [bins, 2m, K]
+    y = (acc.to(torch.float32) * sc.to(torch.float32)[:, None, :]).to(out_dtype)
+    return torch.stack([y[:, :m], y[:, m:]])
+
+
+def fft_binmm_int8(xr, xi, w2, sc, out_dtype=torch.bfloat16):
+    """int8 xr, xi [bins, m, D] (or [bins, B, nblk, D]) x int8 W2
+    [bins, 2D, K], dequantized by ``sc`` [bins, K] f32 -> [2, bins, m, K]
+    in ``out_dtype``.  CPU tensors take the plain version; CUDA tensors
+    launch the kernel, whose output is bf16."""
+    if _cuda.on_cpu(xr, xi, w2, sc):
+        return fft_binmm_int8_plain(xr, xi, w2, sc, out_dtype)
+    if out_dtype != torch.bfloat16:
+        raise ValueError(f"the int8 kernel writes bfloat16, not {out_dtype}")
+    bins, d = xr.shape[0], xr.shape[-1]
+    xr3 = xr.reshape(bins, -1, d)
+    xi3 = xi.reshape(bins, -1, d)
+    _cuda.require(xr3, "xr", torch.int8, 3)
+    _cuda.require(xi3, "xi", torch.int8, 3)
+    _cuda.require(w2, "w2", torch.int8, 3)
+    _cuda.require(sc, "sc", torch.float32, 2)
+    m = xr3.shape[1]
+    k = w2.shape[2]
+    if (xi3.shape != xr3.shape or tuple(w2.shape[:2]) != (bins, 2 * d)
+            or tuple(sc.shape) != (bins, k)):
+        raise ValueError(f"bad shapes: xr {tuple(xr.shape)}, w2 {tuple(w2.shape)}, "
+                         f"sc {tuple(sc.shape)}")
+    if d % 16 or k % 4:
+        raise ValueError(f"D={d} must be a multiple of 16 and K={k} of 4")
+    if any(a.data_ptr() % 16 for a in (xr3, xi3, w2)):
+        raise ValueError("xr, xi and w2 must be 16-byte aligned")
+    out = torch.empty((2, bins, m, k), dtype=torch.bfloat16, device=xr.device)
+    lib = _cuda.load("fft_binmm_int8")
+    fn = _cuda.declare(lib, "tsr_fft_binmm_int8", 5, 4)
+    err = fn(
+        _cuda.ptr(xr3), _cuda.ptr(xi3), _cuda.ptr(w2), _cuda.ptr(sc), _cuda.ptr(out),
+        bins, m, d, k, _cuda.stream_ptr(xr.device),
+    )
+    _cuda.check(lib, err, INT8_NAME)
+    _cuda.count_launch(INT8_NAME)
     return out

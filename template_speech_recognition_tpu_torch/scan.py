@@ -6,15 +6,18 @@ Counterpart of ``template_speech_recognition_tpu.scan``
 * utterances group into sample-length buckets (``bucket_length``);
 * each full bucket batch runs one ``scan_step`` on the device:
   ``frontend_batch_flat -> fft_sliding_scores -> masked_scores ->
-  batched NMS/top-K`` with no host sync inside;
+  batched NMS/top-K [-> batched DTW rescore]`` with no host sync
+  inside; ``int8_spectra`` runs the scorer on int8 template spectra;
 * tail batches shrink to the next power of two that holds their rows;
 * a window of ``DEPTH`` dispatched batches stays in flight: each
   batch's waveforms go up from pinned host memory and its fixed-size
   (s, t, k) triple comes back through ONE ``non_blocking`` copy into
   pinned host memory, read only when the window is full.
 
-Options of the reference that are not ported yet raise
-``NotImplementedError`` naming their ROADMAP item; none is ignored.
+Options of the reference that are not ported yet (the conv and Pallas
+scorers, exact scores, manifest resume, PCM16 upload, per-process
+feeding) raise ``NotImplementedError`` naming their ROADMAP item; none
+is ignored.
 """
 
 from __future__ import annotations
@@ -26,6 +29,11 @@ import os
 import numpy as np
 import torch
 
+from template_speech_recognition_tpu_torch.align.dtw import (
+    dtw_keyword_scores_batch,
+    dtw_pairwise_scores,
+    dtw_pairwise_scores_from_map,
+)
 from template_speech_recognition_tpu_torch.config import PipelineConfig
 from template_speech_recognition_tpu_torch.detect import evaluate as ev
 from template_speech_recognition_tpu_torch.detect.fft_scorer import (
@@ -39,7 +47,7 @@ from template_speech_recognition_tpu_torch.models.bank import TemplateBank
 from template_speech_recognition_tpu_torch.ops.layout import filters_to_flat
 from template_speech_recognition_tpu_torch.utils.metrics import StageCounters
 
-STAGES = ("frontend", "score", "nms")
+STAGES = ("frontend", "score", "nms", "dtw")
 # dispatched batches in flight before the oldest one's result is read
 DEPTH = 3
 
@@ -66,6 +74,62 @@ def batched_top_detections(scores, valid_frames, template_length,
     return top_detections(sc, nms_radius, top_k, time_major=time_major)
 
 
+@dataclasses.dataclass(frozen=True)
+class DTWRescore:
+    """What the config-4 rescore of the top-K peaks needs."""
+
+    w_rows: torch.Tensor   # [K, L, D] flat per-row filters
+    c_rows: torch.Tensor   # [K, L]
+    m_seg: int             # window frames per peak (L + band)
+    band: int
+    top_r: int             # 1 verify-the-winner, 0 exhaustive
+
+
+def dtw_rescore_batched(binary, valid_frames, scores, times, ids,
+                        w_rows, c_rows, m_seg, band, top_r=0, plain=False):
+    """Batched config-4 rescore of the top-K peaks [B, P] -> (scores,
+    ids) [B, P]; empty slots (score -inf) stay -inf with id 0.
+
+    ``top_r == 1`` (verify-the-winner): each peak against the template
+    that won it; on the card straight from the feature map
+    (``dtw_pairwise_scores_from_map``: the pair-LLR and DTW kernels, or
+    their plain versions with ``plain``), on the CPU over gathered fp32
+    segments (``dtw_pairwise_scores``), as the reference does off its
+    accelerator.  ``top_r == 0`` (exhaustive): every peak against every
+    template (``dtw_keyword_scores_batch``), keeping the best."""
+    b, p = scores.shape
+    tdim = binary.shape[1]
+    t_idx = torch.clamp(times.to(torch.int64), 0, tdim - 1)
+    keep = torch.isfinite(scores)
+    if top_r == 1 and binary.device.type == "cuda":
+        pair1 = dtw_pairwise_scores_from_map(
+            binary, t_idx, ids, w_rows, c_rows, valid_frames, m_seg, band,
+            plain=plain,
+        )
+        return torch.where(keep, pair1, float("-inf")), torch.where(keep, ids, 0)
+    dev = binary.device
+    idx = torch.clamp(t_idx[:, :, None] + torch.arange(m_seg, device=dev), 0, tdim - 1)
+    rows = (torch.arange(b, device=dev)[:, None, None] * tdim + idx).reshape(-1)
+    feat_dims = tuple(binary.shape[2:])
+    segs = binary.reshape((b * tdim,) + feat_dims)[rows].to(torch.float32)
+    segs = segs.reshape((b * p, m_seg) + feat_dims)
+    seg_lens = torch.clamp(valid_frames.to(torch.int64)[:, None] - t_idx, 1, m_seg)
+    seg_lens = seg_lens.reshape(-1).to(torch.int32)
+    if top_r == 1:
+        safe = torch.clamp(ids.reshape(-1).to(torch.int64), 0, w_rows.shape[0] - 1)
+        pair1 = dtw_pairwise_scores(
+            segs, seg_lens, w_rows[safe], c_rows.to(torch.float32)[safe], band,
+            plain=plain,
+        ).reshape(b, p)
+        return torch.where(keep, pair1, float("-inf")), torch.where(keep, ids, 0)
+    pair = dtw_keyword_scores_batch(
+        segs, seg_lens, w_rows, c_rows, band, plain=plain
+    ).reshape(b, p, -1)                                  # [B, P, K]
+    best = torch.amax(pair, dim=-1)
+    bid = torch.argmax(pair, dim=-1).to(torch.int32)
+    return torch.where(keep, best, float("-inf")), torch.where(keep, bid, 0)
+
+
 def scan_step(
     wavs: torch.Tensor,            # [B, S] padded waveforms
     valid_samples: torch.Tensor,   # [B] int32
@@ -75,15 +139,17 @@ def scan_step(
     template_length: int,
     nms_radius: int,
     top_k: int,
+    dtw: DTWRescore | None = None,
     plain: bool = False,
     marks: list | None = None,
 ):
     """One scan step: waveforms -> fixed-size detections, no host sync.
     Padded batch rows (valid_samples == 0) come out as all -inf.
 
-    ``plain=True`` runs every kernel's plain PyTorch version.  ``marks``
-    (CUDA only): a list that receives a recorded CUDA event after each
-    stage, for device-time accounting."""
+    ``dtw``: rescore the peaks (config 4).  ``plain=True`` runs every
+    kernel's plain PyTorch version.  ``marks`` (CUDA only): a list that
+    receives a recorded CUDA event after each stage, for device-time
+    accounting."""
     def mark(name):
         if marks is not None:
             ev_ = torch.cuda.Event(enable_timing=True)
@@ -98,10 +164,16 @@ def scan_step(
     scores = fft_sliding_scores(fm.binary, fft_bank, time_major=True,
                                 trim=False, plain=plain)
     mark("score")
-    out = batched_top_detections(scores, fm.valid_frames, template_length,
-                                 nms_radius, top_k, time_major=True)
+    s, t, k = batched_top_detections(scores, fm.valid_frames, template_length,
+                                     nms_radius, top_k, time_major=True)
     mark("nms")
-    return out
+    if dtw is not None:
+        s, k = dtw_rescore_batched(
+            fm.binary, fm.valid_frames, s, t, k, dtw.w_rows, dtw.c_rows,
+            dtw.m_seg, dtw.band, top_r=dtw.top_r, plain=plain,
+        )
+        mark("dtw")
+    return s, t, k
 
 
 def _reject_unported(cfg: PipelineConfig, manifest) -> None:
@@ -110,16 +182,6 @@ def _reject_unported(cfg: PipelineConfig, manifest) -> None:
         raise NotImplementedError(
             f"score_backend={dcfg.score_backend!r}: only the fft scorer is "
             "ported (ROADMAP.md Queue 1, item 8)"
-        )
-    if dcfg.dtw_rescore:
-        raise NotImplementedError(
-            "dtw_rescore: DTW rescoring is not ported yet (ROADMAP.md Queue 1, "
-            "item 7)"
-        )
-    if dcfg.int8_spectra:
-        raise NotImplementedError(
-            "int8_spectra: the int8 bin-matmul is not ported yet (ROADMAP.md "
-            "Queue 2, 'fft_binmm int8')"
         )
     if dcfg.exact_scores:
         raise NotImplementedError(
@@ -150,7 +212,17 @@ def detect_corpus_stream(
     fcfg, dcfg = cfg.frontend, cfg.detect
     dev = bank.device
     wf, cf = bank.llr()
-    fft_bank = build_fft_bank(filters_to_flat(wf), cf)
+    fft_bank = build_fft_bank(filters_to_flat(wf), cf,
+                              mm_dtype=torch.int8 if dcfg.int8_spectra else None)
+    dtw = None
+    if dcfg.dtw_rescore:
+        w_rows, c_rows = bank.llr_rows()
+        w_rows = filters_to_flat(w_rows)
+        if cfg.dtw.top_r == 1 and dev.type == "cuda":
+            # one bf16 copy, the pair-LLR kernel's operand type
+            w_rows = w_rows.to(torch.bfloat16)
+        dtw = DTWRescore(w_rows.contiguous(), c_rows, bank.template_length + cfg.dtw.band,
+                         cfg.dtw.band, cfg.dtw.top_r)
 
     def compute(wavs, vs, marks):
         return scan_step(
@@ -158,7 +230,7 @@ def detect_corpus_stream(
             fcfg=fcfg, template_length=bank.template_length,
             nms_radius=dcfg.nms_radius,
             top_k=dcfg.effective_top_k(wavs.shape[1], fcfg.sample_rate),
-            plain=plain, marks=marks,
+            dtw=dtw, plain=plain, marks=marks,
         )
 
     return stream_scan(

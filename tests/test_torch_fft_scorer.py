@@ -158,9 +158,3 @@ def test_bf16_bank_carries_across_bitwise():
     np.testing.assert_array_equal(
         bank.w2.to(torch.float32).numpy(), np.asarray(w2, np.float32)
     )
-
-
-def test_int8_bank_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfs.build_fft_bank(torch.zeros(2, 4, 8), torch.zeros(2),
-                           mm_dtype=torch.int8)

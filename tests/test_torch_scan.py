@@ -51,6 +51,22 @@ def tbank(jbank):
     )
 
 
+@pytest.fixture(scope="module")
+def jbank4(synth):
+    """Two classes x two mixture components: K = 4 templates, so the
+    exhaustive rescore has a winner to choose."""
+    cfg = JC.PipelineConfig(template=JC.TemplateConfig(num_components=2))
+    return train_bank(SyntheticAdapter(synth), ["aa", "iy"], cfg)
+
+
+@pytest.fixture(scope="module")
+def tbank4(jbank4):
+    return bank_from_numpy(
+        np.asarray(jbank4.templates), np.asarray(jbank4.background),
+        jbank4.labels, device="cpu",
+    )
+
+
 def _per_utt(result):
     d = result.detections
     out = []
@@ -107,13 +123,69 @@ def test_scan_feature_maps_match_reference(synth):
 
 
 @pytest.mark.parametrize("detect_kw", [
-    {"dtw_rescore": True}, {"score_backend": "conv"}, {"int8_spectra": True},
-    {"exact_scores": True},
+    {"score_backend": "pallas"}, {"score_backend": "conv"}, {"exact_scores": True},
 ])
 def test_unported_options_raise(synth, tbank, detect_kw):
     cfg = TC.PipelineConfig(detect=TC.DetectConfig(**detect_kw))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tscan.detect_corpus_stream(TAdapter(synth), tbank, cfg, "aa")
+
+
+def _cfgs(top_r=1, **detect_kw):
+    jcfg = JC.PipelineConfig(detect=JC.DetectConfig(batch_size=3, **detect_kw),
+                             dtw=JC.DTWConfig(top_r=top_r))
+    tcfg = TC.PipelineConfig(detect=TC.DetectConfig(batch_size=3, **detect_kw),
+                             dtw=TC.DTWConfig(top_r=top_r))
+    return jcfg, tcfg
+
+
+@pytest.mark.parametrize("top_r", [1, 0])
+def test_scan_dtw_rescore_matches_reference(synth, jbank4, tbank4, top_r):
+    """Config 4 on the CPU: identical times and template ids, rescored
+    scores at rtol 1e-5 (top_r 0 picks the winner among K = 4)."""
+    jcfg, tcfg = _cfgs(top_r, dtw_rescore=True)
+    want = jax_detect_corpus_stream(SyntheticAdapter(synth), jbank4, jcfg, "aa")
+    got = tscan.detect_corpus_stream(TAdapter(synth), tbank4, tcfg, "aa")
+    assert len(got.detections.scores) == len(want.detections.scores) > 0
+    for (sg, tg, kg), (sw, tw, kw) in zip(_per_utt(got), _per_utt(want)):
+        np.testing.assert_array_equal(tg, tw)
+        np.testing.assert_array_equal(kg, kw)
+        np.testing.assert_allclose(sg, sw, rtol=1e-5, atol=1e-6)
+    assert np.all(np.isfinite(got.detections.scores))
+
+
+def _matched(got, want):
+    """(matched peaks, same-id peaks, [(score got, score want)] of
+    same-id peaks) over (utterance, time)."""
+    pairs, n_match, n_same = [], 0, 0
+    for (sg, tg, kg), (sw, tw, kw) in zip(_per_utt(got), _per_utt(want)):
+        a = {int(t): (int(k), float(s)) for s, t, k in zip(sg, tg, kg)}
+        b = {int(t): (int(k), float(s)) for s, t, k in zip(sw, tw, kw)}
+        for t in set(a) & set(b):
+            n_match += 1
+            if a[t][0] == b[t][0]:
+                n_same += 1
+                pairs.append((a[t][1], b[t][1]))
+    return n_match, n_same, np.asarray(pairs)
+
+
+@pytest.mark.parametrize("dtw", [False, True])
+def test_scan_int8_spectra_matches_reference(synth, jbank4, tbank4, dtw):
+    """int8 spectra: the block spectra quantize per call, so a peak may
+    move; identical (time, id) on >= 99% of matched peaks, and with
+    DTW the rescored scores (a function of time, id and the map) of
+    those peaks at rtol 1e-5."""
+    jcfg, tcfg = _cfgs(1, dtw_rescore=dtw, int8_spectra=True)
+    want = jax_detect_corpus_stream(SyntheticAdapter(synth), jbank4, jcfg, "aa")
+    got = tscan.detect_corpus_stream(TAdapter(synth), tbank4, tcfg, "aa")
+    n = max(len(got.detections.scores), len(want.detections.scores))
+    n_match, n_same, pairs = _matched(got, want)
+    assert n > 0 and n_match >= 0.99 * n and n_same >= 0.99 * n_match
+    if dtw:
+        np.testing.assert_allclose(pairs[:, 0], pairs[:, 1], rtol=1e-5, atol=1e-6)
+    else:
+        top = np.max(np.abs(pairs[:, 1]))
+        np.testing.assert_allclose(pairs[:, 0], pairs[:, 1], rtol=0, atol=1e-2 * top)
 
 
 def test_manifest_and_pcm16_upload_raise(synth, tbank, monkeypatch):
@@ -191,6 +263,23 @@ def test_cli_detect(tmp_path, capsys, jbank):
     z = np.load(out)
     assert len(z["scores"]) == line["num_detections"] > 0
     assert np.all(np.isfinite(z["scores"]))
+
+
+def test_cli_detect_dtw_int8(tmp_path, capsys, jbank4):
+    from template_speech_recognition_tpu_torch.cli import main
+
+    bank_path = str(tmp_path / "bank.npz")
+    jbank4.save(bank_path)
+    out = str(tmp_path / "dets.npz")
+    assert main(["detect", "--bank", bank_path, "--phone", "aa", "--dtw-rescore",
+                 "--dtw-top-r", "0", "--int8-spectra", "--device", "cpu",
+                 "--out", out]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(line) == {"num_detections", "audio_seconds", "audio_s_per_s", "out"}
+    z = np.load(out)
+    assert len(z["scores"]) == line["num_detections"] > 0
+    assert np.all(np.isfinite(z["scores"]))
+    assert set(z["template_ids"].tolist()) <= set(range(4))
 
 
 def test_bank_load_and_llr_match_reference(tmp_path, jbank):
