@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. builds the eight CUDA kernels of the detection scan from
+1. builds the ten CUDA kernels of the detection scan from
    ``template_speech_recognition_tpu_torch/csrc`` (one nvcc per source,
    all started together);
 2. calls each kernel's wrapper on the card at the shapes the scan gives
@@ -15,12 +15,20 @@
    CUDA events (median of 10 after 2 warm-ups; the two short DTW
    kernels and their library call over loops of 100 launches) and
    computes each kernel's bound (the larger of the least bytes / 3.35
-   TB/s and operations / the peak rate of their type);
+   TB/s and operations / the peak rate of their type).  The log-mel
+   scan's kernels (n_mels 64: F = 63, D = 504) follow: kernel 1 in mel
+   mode (also at n_mels 129, where the two-kernel path takes it), the
+   radix counting pass at every level's real candidates (timed over 100
+   launches queued behind a device sleep, so the events time the device,
+   not the enqueue; the yardstick is ``torch.kthvalue`` for both ranks,
+   which stands for the whole 11-launch select), binarize + spread, the
+   layered path against the two-kernel path at the default shape
+   (bitwise), and pair LLR and the int8 bin matmul at D = 504.
    It also runs every kernel once at small ragged shapes (partial
    tiles, odd nfft, an utterance with no valid row, ties and -0.0,
    DTW at L = 32, 48, 96, 128 and 200 with ragged segment lengths and band
-   1, LLR windows past the map's end) and holds it against its plain
-   version;
+   1, LLR windows past the map's end, F = 39 and 63, unaligned radix
+   rows) and holds it against its plain version;
 3. drives the scan itself, ``detect_corpus_stream``, at full width over
    19 utterances of 30 s (two batches of 8 and a tail of 3 padded to
    4, whose padding row has no valid frame), with every launch count
@@ -30,7 +38,16 @@
    verify-the-winner) on int8 template spectra (config 5);
 4. runs the exhaustive DTW rescore (``DTWConfig.top_r = 0``: every peak
    against all 1024 templates) on one batch of 8 against the plain
-   versions.
+   versions;
+5. drives the log-mel scan (``FrontendConfig(use_mel=True)``: the
+   layered frontend) at full width over the same 19 utterances with a
+   random bank of 1024 log-mel templates, then the log-mel scan with DTW
+   rescoring on int8 spectra, each against its plain run, with the
+   launch counts set to 0 just before each and read just after.
+
+The default and the log-mel scan are each run once more under
+``torch.profiler``: the union of the device intervals in the scan loop,
+set against the untraced loop's wall time, is the device's busy share.
 
 Any failed check exits non-zero without printing the result line.  The
 last three lines are the kernels JSON, the card's name and power
@@ -56,7 +73,12 @@ FP32_FLOPS = 67e12         # fp32 outside the tensor cores
 BF16_FLOPS = 989e12        # bf16 tensor cores, dense
 INT8_OPS = 1979e12         # int8 tensor cores, dense
 STEMS = ("frontend_planes", "select_binspread", "fft_gemm", "banded_dtw", "pair_llr",
-         "fft_binmm_int8")
+         "fft_binmm_int8", "radix_counts", "binspread")
+# kernels each scan must launch (launch-count names)
+SCAN_KERNELS = ("frontend_planes", "select_binspread", "fft_block_dft", "fft_binmm",
+                "fft_idft")
+MEL_KERNELS = ("frontend_planes_mel", "radix_counts", "binspread", "fft_block_dft",
+               "fft_binmm", "fft_idft")
 
 
 class CheckFailed(Exception):
@@ -79,8 +101,9 @@ def card_line() -> str:
 def time_ms(torch, fn, reps=10, warm=2, loop=1) -> float:
     """Median over ``reps`` of the event time of ``loop`` back-to-back
     calls, divided by ``loop``.  Kernels of tens of microseconds take
-    ``loop=100``, so that the device runs ahead of the wrapper's host
-    work and the events time the launches, not the enqueue."""
+    ``loop=100``: the loop is then queued behind a device sleep longer
+    than its enqueue, so the device runs the launches back to back and
+    the events time them, not the wrapper's host work."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -88,6 +111,8 @@ def time_ms(torch, fn, reps=10, warm=2, loop=1) -> float:
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if loop > 1:
+            torch.cuda._sleep(50_000_000)      # ~25 ms at the H100's clocks
         a.record()
         for _ in range(loop):
             fn()
@@ -107,6 +132,53 @@ def host_us(torch, fn, loop=100) -> float:
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     return (t1 - t0) / loop * 1e6
+
+
+def device_ms_traced(torch, fn):
+    """Device time of ``fn`` from a ``torch.profiler`` trace: the union of
+    its device intervals (kernels, copies, memsets) in ms, and the device
+    ms by name; (None, {}) if the trace holds no device event.  Unlike
+    events around a stage, the union leaves out the gaps in which the
+    device waits for the host to enqueue."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev_events:
+        return None, {}
+    busy, end = 0.0, -float("inf")
+    for s, e in sorted((e.time_range.start, e.time_range.end) for e in dev_events):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    by_name = {}
+    for e in dev_events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    return busy / 1e3, by_name
+
+
+def report_busy(torch, say, label, run, build, ctr):
+    """The scan loop's device time (a traced run of the whole scan less a
+    traced bank build) against the loop wall of the untraced run, and the
+    five names with the most device time in the loop."""
+    total, names = device_ms_traced(torch, run)
+    built, built_names = device_ms_traced(torch, build)
+    if total is None or built is None:
+        say(f"{label}: device busy share not measured (the trace holds no device event)")
+        return
+    loop_ms = ctr["time_scan_s"] * 1e3
+    scan_ms = total - built
+    for name, ms in built_names.items():
+        names[name] = names.get(name, 0.0) - ms
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:5]
+    say(f"{label}: device time in the scan loop {scan_ms:.3f} ms ({scan_ms / ctr['batches']:.3f} "
+        f"ms a batch; torch.profiler, the bank build's {built:.3f} ms left out) = "
+        f"{scan_ms / loop_ms:.3f} of the untraced loop's {loop_ms:.3f} ms; most device time: "
+        + ", ".join(f"{n[:48]} {ms:.3f} ms" for n, ms in top))
 
 
 def bound_ms(nbytes: float, ops: float, rate: float):
@@ -143,19 +215,63 @@ class Corpus:
         return out
 
 
-def check_planes(torch, frames, nfft, got, want, name):
-    """Kernel 1 against its plain version.  True fp32 -> scaled error
-    (max |error| / max |plain|) <= 1e-5 on the cells whose four
-    spectrum inputs have a power >= 1e-2 (four decades above LOG_EPS),
-    and |error| <= 1e-3 everywhere: next to the floor the log amplifies
-    the fp32 summation order.  Returns (scaled, max |error|, share of
-    well-conditioned cells)."""
-    from template_speech_recognition_tpu_torch.ops.dft import dft_matrices
+def planes64(torch, frames, nfft, sample_rate, n_mels):
+    """Kernel 1's function in float64, and for every cell a bound on the
+    error of an fp32 evaluation in any summation order: each DFT sum of
+    n terms is off by at most n * u * sum|terms| (u = 2^-24), which
+    carries through the power, the mel sum, the log and the difference
+    (plus one rounding each, and 4 ulps for logf)."""
+    from template_speech_recognition_tpu_torch.ops.dft import (
+        LOG_EPS, dft_matrices, mel_filterbank,
+    )
 
-    f = nfft // 2
+    u, eps = 2.0 ** -24, float(LOG_EPS)
+    n = frames.shape[1]
+    cos_m, sin_m = (m.double() for m in dft_matrices(n, nfft, frames.device))
+    x = frames.double()
+    re, im = x @ cos_m, x @ sin_m
+    dre, dim = n * u * (x.abs() @ cos_m.abs()), n * u * (x.abs() @ sin_m.abs())
+    p = re * re + im * im
+    dp = 2 * re.abs() * dre + 2 * im.abs() * dim + dre ** 2 + dim ** 2 + 3 * u * p
+    half = 1.0
+    if n_mels:
+        fb = mel_filterbank(sample_rate, nfft, n_mels, frames.device).double()
+        dp = dp @ fb + fb.shape[0] * u * (p @ fb)
+        p = p @ fb
+        f = n_mels - 1
+    else:
+        half = 0.5
+        f = nfft // 2
+    rel = (dp + u * (p + eps)) / (p + eps)
+    ds = torch.where(rel < 0.5, -torch.log1p(-rel.clamp(max=0.5)), torch.full_like(rel, 1e3))
+    spec = half * torch.log(p + eps)
+    ds = half * ds + 4 * u * spec.abs()
+    nxt, dnx = torch.cat([spec[1:], spec[-1:]]), torch.cat([ds[1:], ds[-1:]])
+    ref = torch.stack([nxt[:, :f] - spec[:, :f], spec[:, 1 : f + 1] - spec[:, :f],
+                       nxt[:, 1 : f + 1] - spec[:, :f], nxt[:, :f] - spec[:, 1 : f + 1]])
+    bound = torch.stack([dnx[:, :f] + ds[:, :f], ds[:, 1 : f + 1] + ds[:, :f],
+                         dnx[:, 1 : f + 1] + ds[:, :f], dnx[:, :f] + ds[:, 1 : f + 1]])
+    return ref, bound + u * ref.abs()
+
+
+def check_planes(torch, frames, nfft, got, want, name, sample_rate=0, n_mels=0):
+    """Kernel 1 against its plain version: scaled error (max |error| /
+    max |plain|) <= 1e-5 on the cells whose four spectrum inputs have a
+    power (log-mel: a mel energy) >= 1e-2, four decades above LOG_EPS;
+    and on every cell, kernel and plain version alike within the fp32
+    error bound of ``planes64`` of the float64 planes (next to the floor
+    the log amplifies the summation order, so the two fp32 versions may
+    differ there by more than any fixed tolerance).  Returns (scaled,
+    max |kernel - plain|, share of well-conditioned cells)."""
+    from template_speech_recognition_tpu_torch.ops.dft import dft_matrices, mel_filterbank
+
+    f = n_mels - 1 if n_mels else nfft // 2
     cos_m, sin_m = dft_matrices(frames.shape[1], nfft, frames.device)
     x64 = frames.double()
-    okp = ((x64 @ cos_m.double()) ** 2 + (x64 @ sin_m.double()) ** 2) >= 1e-2
+    power = (x64 @ cos_m.double()) ** 2 + (x64 @ sin_m.double()) ** 2
+    if n_mels:
+        power = power @ mel_filterbank(sample_rate, nfft, n_mels, frames.device).double()
+    okp = power >= 1e-2
     okn = torch.cat([okp[1:], okp[-1:]])
     ok = okp[:, :f] & okp[:, 1 : f + 1] & okn[:, :f] & okn[:, 1 : f + 1]
     diff = (got - want).abs()
@@ -164,7 +280,11 @@ def check_planes(torch, frames, nfft, got, want, name):
     share = float(ok.float().mean())
     check(share > 0.5, f"{name}: too few well-conditioned cells ({share})")
     check(scaled <= 1e-5, f"{name}: scaled error {scaled} > 1e-5")
-    check(err <= 1e-3, f"{name}: max error {err} > 1e-3")
+    ref, bound = planes64(torch, frames, nfft, sample_rate, n_mels)
+    for label, v in (("kernel", got), ("plain", want)):
+        over = float(((v.double() - ref).abs() / bound).max())
+        check(over <= 1.0, f"{name}: {label} off the float64 planes by {over:.3g} x "
+                           "the fp32 error bound")
     return scaled, err, share
 
 
@@ -212,10 +332,13 @@ def match_detections(got, want):
     return frac, same / max(matched, 1), diff, float(np.max(np.abs(want.scores)))
 
 
-def small_shape_checks(torch, dev, k1, k2, k3, k4, k5, kp, kd, fp, fs):
+def small_shape_checks(torch, dev, audio, k1, k2, k3, k4, k5, kp, kd, k8, k9, fp, fs):
     """Each kernel once at small ragged shapes (the CPU tests' sizes:
-    nfft 256 -> F = 128, D = 1024, K = 128, L = 8 -> nfft 39, hop 32),
-    against its plain version on the same inputs."""
+    nfft 256 -> F = 128, D = 1024, K = 128, L = 8 -> nfft 39, hop 32;
+    the log-mel widths F = 39 and 63, D = 504), against its plain
+    version on the same inputs."""
+    from template_speech_recognition_tpu_torch.ops.edges import order_keys32
+
     rng = np.random.default_rng(SEED + 1)
     frames = torch.from_numpy(
         rng.standard_normal((4 * 128, 400)).astype(np.float32)).to(dev)
@@ -270,9 +393,66 @@ def small_shape_checks(torch, dev, k1, k2, k3, k4, k5, kp, kd, fp, fs):
                                k4.fft_binmm_int8_plain(xq_r, xq_i, w28, sc8))),
               f"fft_binmm_int8 (small, {shape}): not bitwise")
 
+    # ... and at the log-mel width D = 504 (rows only 8-byte aligned)
+    for shape in ((3, 50, 504), (3, 2, 25, 504)):
+        xq_r = torch.randint(-127, 128, shape, dtype=torch.int8, device=dev)
+        xq_i = torch.randint(-127, 128, shape, dtype=torch.int8, device=dev)
+        w28 = torch.randint(-127, 128, (3, 1008, 132), dtype=torch.int8, device=dev)
+        sc8 = torch.rand(3, 132, device=dev) * 1e-3
+        check(bool(torch.equal(k4.fft_binmm_int8(xq_r, xq_i, w28, sc8),
+                               k4.fft_binmm_int8_plain(xq_r, xq_i, w28, sc8))),
+              f"fft_binmm_int8 (small, {shape}): not bitwise")
+
+    # kernel 1, log-mel mode: F = 39, 63 and 128 (n_mels 129), over a row
+    # count that is not a multiple of the 32-row tile; and a DFT width
+    # that is not a multiple of 32 (nfft 400 -> 200 columns).  Windowed
+    # audio frames: white noise puts deep cancellations into single DFT
+    # bins, which the few-bin low mel filters pass on to the log.
+    fr = audio[1000 : 1000 + 4 * 128 - 11]
+    for nfft_s, nm in ((512, 40), (512, 64), (512, 129), (400, 0)):
+        check_planes(torch, fr, nfft_s, k1.edge_response_planes(fr, nfft_s, 16000, nm),
+                     k1.edge_response_planes_plain(fr, nfft_s, 16000, nm),
+                     f"frontend_planes (small, nfft {nfft_s}, n_mels {nm})", 16000, nm)
+
+    # radix counting pass: ragged rows (N % 4 != 0: unaligned, key by
+    # key), NC 3, 8, 16, masked keys, candidates in the digit's range
+    for n, nc, shift in ((2500, 16, 29), (2501, 3, 0), (9000, 8, 24), (7, 16, 5)):
+        keys = order_keys32(torch.randn(5, n, device=dev))
+        keys[:, ::7] = -1
+        cand = rng.integers(0, 1 << (32 - shift), (5, nc), dtype=np.uint64)
+        cand = torch.from_numpy(cand.astype(np.uint32).view(np.int32)).to(dev)
+        check(bool(torch.equal(k8.radix_level_counts(keys, cand, shift),
+                               k8.radix_level_counts_plain(keys, cand, shift))),
+              f"radix_counts (small, N={n}, NC={nc}, shift={shift}): not bitwise")
+
+    # order statistics and binarize + spread at F = 39 and 63, T not a
+    # multiple of the 32-row tile, an utterance with no valid row, a
+    # strided [B, P] view of plane-major planes, rf 0, 1 and 2
+    for f_s, t_s, rf, rt in ((39, 250, 0, 0), (63, 250, 2, 1), (63, 77, 1, 1)):
+        x = rng.standard_normal((4, 3, t_s, f_s)).astype(np.float32)
+        x[:, :, : t_s // 3] = np.round(x[:, :, : t_s // 3] * 4) / 4
+        x[:, :, 5, :7] = -0.0
+        pl = torch.from_numpy(x).to(dev).transpose(0, 1)              # [B, P, T, F]
+        vs = torch.tensor([t_s, t_s // 3, 0], dtype=torch.int32, device=dev)
+        hi, lo = fp.plane_order_statistics(pl, vs, 0.9)
+        hi_r, lo_r = fp.plane_order_statistics(pl, vs, 0.9, plain=True)
+        check(bool(torch.equal(hi.view(torch.int32), hi_r.view(torch.int32)))
+              and bool(torch.equal(lo.view(torch.int32), lo_r.view(torch.int32))),
+              f"plane_order_statistics (small, F={f_s}): not bitwise")
+        args9 = (pl, hi.contiguous(), lo.contiguous(), vs, rf)
+        check(bool(torch.equal(k9.binarize_freqspread(*args9),
+                               k9.binarize_freqspread_plain(*args9))),
+              f"binspread (small, F={f_s}, T={t_s}, rf={rf}): not bitwise")
+        check(bool(torch.equal(
+            fp.binarize_spread_flat(pl, hi, lo, vs, rt, rf),
+            fp.binarize_spread_flat(pl, hi, lo, vs, rt, rf, plain=True))),
+            f"binarize_spread_flat (small, F={f_s}): not bitwise")
+
     # pair LLR: windows into the next utterance and past the map's end,
-    # L and m not multiples of the 32 x 40 output tile
-    for bb, tt, dd, kk, length, mm in ((2, 50, 64, 5, 6, 16), (3, 40, 96, 4, 40, 48)):
+    # L and m not multiples of the 32 x 40 output tile; D = 504 leaves
+    # the last 32-wide contraction chunk a quarter empty
+    for bb, tt, dd, kk, length, mm in ((2, 50, 64, 5, 6, 16), (3, 40, 96, 4, 40, 48),
+                                       (2, 40, 504, 4, 32, 40)):
         fmap = torch.from_numpy(rng.random((bb, tt, dd)) < 0.3).to(dev)
         wq = torch.randn(kk, length, dd, device=dev).to(torch.bfloat16)
         rs = torch.tensor([0, 3, tt - 4, tt + 5, bb * tt - 9, bb * tt - 2, bb * tt - 1],
@@ -297,6 +477,191 @@ def small_shape_checks(torch, dev, k1, k2, k3, k4, k5, kp, kd, fp, fs):
                         f"banded_dtw (small, L={length}, band={band})")
 
 
+def take_launches(rows, names, counts):
+    """Each listed kernel's row takes its launch count from this run."""
+    for row in rows:
+        if row["name"] in names:
+            row["launches"] = int(counts.get(row["name"], 0))
+
+
+def mel_kernel_checks(torch, M, dev, wavs, nvalid, valid, frames2, bank_mel, record, say):
+    """The log-mel scan's kernels at its shapes (B = 8, T_pad = 3072,
+    n_mels 64 -> F = 63, D = 504), each against its plain version."""
+    C, fp, fs, k1, k3, k4, kp, k8, k9 = (M.C, M.fp, M.fs, M.k1, M.k3, M.k4, M.kp, M.k8,
+                                          M.k9)
+    from template_speech_recognition_tpu_torch.ops.dft import dft_matrices, mel_filterbank
+    from template_speech_recognition_tpu_torch.ops.edges import key_to_float, order_keys32
+    from template_speech_recognition_tpu_torch.ops.layout import filters_to_flat
+    from template_speech_recognition_tpu_torch.ops.radix_kernel import as_uint32, to_bits32
+
+    mcfg = C.FrontendConfig(use_mel=True)
+    nfft, sr, nm, f = mcfg.nfft, mcfg.sample_rate, mcfg.n_mels, mcfg.feature_freqs
+    check(f == 63 and not fp._fused_ok(mcfg), "n_mels 64 must take the layered path")
+    check(fp._fused_ok(C.FrontendConfig(use_mel=True, n_mels=129)),
+          "n_mels 129 must take the two-kernel path")
+    n_rows, fl = frames2.shape
+    t_pad = n_rows // B
+    bins = nfft // 2 + 1
+    cos_m, sin_m = dft_matrices(fl, nfft, dev)
+    cs = torch.cat([cos_m, sin_m], dim=1).contiguous()
+    pw = torch.rand(n_rows, bins, device=dev)
+
+    # kernel 1, log-mel mode: TPU row 7 (the layered path's four-output
+    # kernel); row 1's mel mode is the same launch, timed at n_mels 129
+    def planes_row(n_mels):
+        got = k1.edge_response_planes(frames2, nfft, sr, n_mels)
+        ref = k1.edge_response_planes_plain(frames2, nfft, sr, n_mels)
+        scaled, err, share = check_planes(torch, frames2, nfft, got, ref,
+                                          f"frontend_planes (n_mels {n_mels})", sr, n_mels)
+        fb = mel_filterbank(sr, nfft, n_mels, dev)
+        _fbt, mr = k1._mel_on(sr, nfft, n_mels, str(dev))
+        nnz = int((mr[:, 1] - mr[:, 0]).sum())
+        times = (
+            time_ms(torch, lambda: k1.edge_response_planes(frames2, nfft, sr, n_mels)),
+            time_ms(torch, lambda: k1.edge_response_planes_plain(frames2, nfft, sr, n_mels)),
+            time_ms(torch, lambda: (torch.matmul(frames2, cs), torch.matmul(pw, fb))),
+        )
+        nbytes = (n_rows * fl * 4 + 2 * fl * bins * 4 + fb.numel() * 4
+                  + 4 * n_rows * (n_mels - 1) * 4)
+        ops = 2 * 2 * n_rows * fl * bins + 2 * n_rows * nnz
+        say(f"frontend_planes (n_mels {n_mels}): scaled error {scaled:.3g} on {share:.3f} "
+            f"of the cells (tolerance 1e-5); the mel product over {nnz} nonzero filter "
+            f"weights of {fb.numel()}")
+        return got, err, times, nbytes, ops
+
+    pm, err7, times7, bytes7, ops7 = planes_row(nm)
+    record(SimpleNamespace(NAME=k1.MEL_NAME, SOURCE=k1.SOURCE, REPLACES=k1.MEL_REPLACES),
+           err7, "scaled 1e-5; fp32 error bound", *times7, bytes7, ops7, FP32_FLOPS)
+    _p129, err1, times1, bytes1, ops1 = planes_row(129)
+    b1, by1 = bound_ms(bytes1, ops1, FP32_FLOPS)
+    say(f"frontend_planes mel mode at n_mels 129 (TPU row 1's mel mode; the two-kernel "
+        f"path): max_abs_err {err1:.6g} kernel {times1[0]:.4f} ms plain {times1[1]:.4f} ms "
+        f"library {times1[2]:.4f} ms bound {b1:.4f} ms ({by1})")
+    del _p129
+
+    # kernel 8 at every level's real candidates: the layered select of
+    # plane_order_statistics, one launch per level, each bitwise
+    planes = pm.reshape(4, B, t_pad, f).transpose(0, 1)            # [B, 4, T, F] view
+    q = mcfg.edge_quantile
+    rv = torch.arange(t_pad, device=dev)[None, :] < valid[:, None]
+    keys = order_keys32(planes.transpose(0, 1)).masked_fill(~rv[None, :, :, None], -1)
+    keys = keys.reshape(4 * B, t_pad * f)
+    need = fp._dual_ranks(valid, f, q).to(torch.int64)[None, :, :, None]
+    prefix = torch.zeros((4, B, 2), dtype=torch.int64, device=dev)
+    bits_done, levels = 0, []
+    for w in fp.RADIX_WIDTHS:
+        bits_done += w
+        base = prefix << w
+        cand = to_bits32((base[..., None] + torch.arange(1 << w, device=dev)).reshape(4 * B, -1))
+        shift = 32 - bits_done
+        cnt = k8.radix_level_counts(keys, cand, shift)
+        check(bool(torch.equal(cnt, k8.radix_level_counts_plain(keys, cand, shift))),
+              f"radix_counts (level shift {shift}): not bitwise")
+        levels.append((cand, shift))
+        # the reference's digit pick: the first candidate reaching the rank
+        ok = (cnt.reshape(4, B, 2, 1 << w) >= need).to(torch.int32)
+        prefix = base + torch.argmax(ok, dim=-1)
+    os_hi, os_lo = fp.plane_order_statistics(planes, valid, q)
+    hi_r, lo_r = fp.plane_order_statistics(planes, valid, q, plain=True)
+    sel = key_to_float(prefix).transpose(0, 1)                      # [B, 4, 2]
+    check(bool(torch.equal(os_hi.view(torch.int32), sel[..., 0].view(torch.int32)))
+          and bool(torch.equal(os_lo.view(torch.int32), sel[..., 1].view(torch.int32))),
+          "plane_order_statistics does not select what its launches count")
+    check(bool(torch.equal(os_hi.view(torch.int32), hi_r.view(torch.int32)))
+          and bool(torch.equal(os_lo.view(torch.int32), lo_r.view(torch.int32))),
+          "plane_order_statistics: kernel and plain selects differ")
+    # timed at the second level's real candidates (NC = 16, as every
+    # level after the first)
+    cand2, shift2 = levels[1]
+    keys64 = as_uint32(keys)
+    check(bool((valid == valid[0]).all()), "the timed batch has one valid length")
+    ka, kb = int(need[0, 0, 0, 0]), int(need[0, 0, 1, 0])
+    record(
+        k8, 0.0, "bitwise",
+        time_ms(torch, lambda: k8.radix_level_counts(keys, cand2, shift2), loop=100),
+        time_ms(torch, lambda: k8.radix_level_counts_plain(keys, cand2, shift2)),
+        # the yardstick stands for the whole 11-launch select (both ranks)
+        time_ms(torch, lambda: (torch.kthvalue(keys64, ka, dim=1),
+                                torch.kthvalue(keys64, kb, dim=1))),
+        keys.numel() * 4 + cand2.numel() * 8,
+        keys.numel() * cand2.shape[1], FP32_FLOPS,      # one 32-bit compare a key a candidate
+    )
+    sel_ms = time_ms(torch, lambda: fp.plane_order_statistics(planes, valid, q))
+    say(f"radix_counts: {keys.shape[0]} rows x {keys.shape[1]} keys, {len(fp.RADIX_WIDTHS)} "
+        f"launches a select, every level bitwise; the whole layered select "
+        f"(plane_order_statistics: keys, 11 launches, digit picks) {sel_ms:.4f} ms; host "
+        f"{host_us(torch, lambda: k8.radix_level_counts(keys, cand2, shift2)):.1f} us a launch")
+    del keys, keys64
+
+    # kernel 9 on the kernel-1 planes (a strided [B, P] view) with the
+    # selected statistics; bitwise
+    args9 = (planes, os_hi.contiguous(), os_lo.contiguous(), valid, mcfg.spread_freq)
+    m9 = k9.binarize_freqspread(*args9)
+    check(bool(torch.equal(m9, k9.binarize_freqspread_plain(*args9))), "binspread: not bitwise")
+    record(
+        k9, 0.0, "bitwise",
+        time_ms(torch, lambda: k9.binarize_freqspread(*args9), loop=100),
+        time_ms(torch, lambda: k9.binarize_freqspread_plain(*args9)),
+        None,      # no single PyTorch call binarizes and dilates
+        # only rows below valid are read; the whole map is written
+        4 * int(valid.sum()) * f * 4 + m9.numel() + 2 * os_hi.numel() * 4 + B * 4,
+        0, 1.0,
+    )
+    del m9, pm, planes
+
+    # the layered path against the two-kernel path at the default
+    # scan's shape (F = 256): bitwise
+    dcfg = C.FrontendConfig()
+    lay = fp.frontend_batch_flat(wavs, nvalid, dcfg, layered=True)
+    fus = fp.frontend_batch_flat(wavs, nvalid, dcfg, layered=False)
+    check(bool(torch.equal(lay.binary, fus.binary)), "layered and fused maps differ")
+    ms_lay = time_ms(torch, lambda: fp.frontend_batch_flat(wavs, nvalid, dcfg, layered=True))
+    ms_fus = time_ms(torch, lambda: fp.frontend_batch_flat(wavs, nvalid, dcfg, layered=False))
+    say(f"layered == two-kernel frontend at the default shape: bitwise "
+        f"({int(lay.binary.sum())} set cells); layered {ms_lay:.4f} ms, two-kernel "
+        f"{ms_fus:.4f} ms a batch")
+    del lay, fus
+
+    # pair LLR and the int8 bin matmul at D = 504 on the log-mel map
+    fm = fp.frontend_batch_flat(wavs, nvalid, mcfg)
+    d = 8 * f
+    check(tuple(fm.binary.shape) == (B, t_pad, d), f"mel map {tuple(fm.binary.shape)}")
+    w_rows, _c_rows = bank_mel.llr_rows()
+    w16 = filters_to_flat(w_rows).to(torch.bfloat16).contiguous()          # [K, L, 504]
+    rng = np.random.default_rng(SEED + 2)
+    top_k, m_llr = 123, 40
+    times = torch.from_numpy(rng.integers(0, int(valid.min()), (B, top_k))).to(dev)
+    ids = torch.from_numpy(rng.integers(0, K, B * top_k).astype(np.int32)).to(dev)
+    rowstart = (torch.arange(B, device=dev)[:, None] * t_pad + times).reshape(-1)
+    args_p = (fm.binary, w16, rowstart.to(torch.int32), ids, m_llr)
+    llr = kp.pair_llr(*args_p)
+    llr_ref = kp.pair_llr_plain(*args_p)
+    err_p = float((llr - llr_ref).abs().max())
+    ref_p = float(llr_ref.abs().max())
+    check(err_p <= 1e-5 * ref_p, f"pair_llr (D=504): {err_p} > 1e-5 * {ref_p}")
+    ms_p = time_ms(torch, lambda: kp.pair_llr(*args_p), loop=100)
+    wf_m, cf_m = bank_mel.llr()
+    fbank8 = fs.build_fft_bank(filters_to_flat(wf_m), cf_m, mm_dtype=torch.int8)
+    nfft_s, length = fbank8.nfft, fbank8.length
+    hop = nfft_s - length + 1
+    nblk = -(-(t_pad - length + 1) // hop)
+    cmat, smat = fs._dft_mats(nfft_s, torch.bfloat16, dev)
+    g = torch.cat([cmat, -smat], dim=1).contiguous()
+    xr, xi = k3.fft_block_dft(fm.binary.to(torch.bfloat16), g, nfft_s, hop, nblk)
+    xq_r, xq_i, sc8 = fs.quantize_block_spectra(xr, xi, fbank8.w2_scale)
+    y8 = k4.fft_binmm_int8(xq_r, xq_i, fbank8.w2, sc8)
+    check(bool(torch.equal(y8, k4.fft_binmm_int8_plain(xq_r, xq_i, fbank8.w2, sc8))),
+          "fft_binmm_int8 (D=504): not bitwise")
+    ms_8 = time_ms(torch, lambda: k4.fft_binmm_int8(xq_r, xq_i, fbank8.w2, sc8))
+    m = B * nblk
+    b8, _ = bound_ms(2 * (nfft_s // 2 + 1) * m * d + fbank8.w2.numel() + sc8.numel() * 4
+                     + 2 * (nfft_s // 2 + 1) * m * K * 2,
+                     2 * (2 * m) * (2 * d) * K * (nfft_s // 2 + 1), INT8_OPS)
+    say(f"at D = 504: pair_llr max error {err_p:.3g} (1e-5 x {ref_p:.4g} allowed) "
+        f"{ms_p:.4f} ms (100 launches); fft_binmm_int8 bitwise {ms_8:.4f} ms (bound "
+        f"{b8:.4f} ms)")
+
+
 def main() -> int:
     import torch
 
@@ -319,7 +684,9 @@ def main() -> int:
         fft_dft_kernel as k3,
         fft_idft_kernel as k5,
         frontend_kernel as k1,
+        binspread_kernel as k9,
         pair_llr_kernel as kp,
+        radix_kernel as k8,
         selbin_kernel as k2,
     )
     from template_speech_recognition_tpu_torch.ops.dft import dft_matrices
@@ -409,7 +776,7 @@ def main() -> int:
     cos_m, sin_m = dft_matrices(fl, fcfg.nfft, dev)
     cs = torch.cat([cos_m, sin_m], dim=1).contiguous()
     record(
-        k1, err1, "scaled 1e-5, abs 1e-3",
+        k1, err1, "scaled 1e-5; fp32 error bound",
         time_ms(torch, lambda: k1.edge_response_planes(frames2, fcfg.nfft)),
         time_ms(torch, lambda: k1.edge_response_planes_plain(frames2, fcfg.nfft)),
         time_ms(torch, lambda: torch.matmul(frames2, cs)),
@@ -616,8 +983,17 @@ def main() -> int:
     del llr, llr_ref, cost, cost96, fbank8
     torch.cuda.empty_cache()
 
-    small_shape_checks(torch, dev, k1, k2, k3, k4, k5, kp, kd, fp, fs)
-    say("small ragged shapes: all eight kernels agree with their plain versions")
+    # ---- the log-mel scan's kernels ------------------------------------
+    mf = C.FrontendConfig(use_mel=True).feature_freqs
+    templates_mel = rng.uniform(0.01, 0.99, (K, L, mf, 8)).astype(np.float32)
+    background_mel = rng.uniform(0.01, 0.99, (mf, 8)).astype(np.float32)
+    bank_mel = bank_from_numpy(templates_mel, background_mel, [f"k{i}" for i in range(K)], dev)
+    mods = SimpleNamespace(C=C, fp=fp, fs=fs, k1=k1, k3=k3, k4=k4, kp=kp, k8=k8, k9=k9)
+    mel_kernel_checks(torch, mods, dev, wavs, nvalid, valid, frames2, bank_mel, record, say)
+    torch.cuda.empty_cache()
+
+    small_shape_checks(torch, dev, frames2, k1, k2, k3, k4, k5, kp, kd, k8, k9, fp, fs)
+    say("small ragged shapes: all ten kernels agree with their plain versions")
 
     # ---- the scan at full width ---------------------------------------
     scan_cfg = C.PipelineConfig(detect=C.DetectConfig(batch_size=B))
@@ -631,9 +1007,9 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _cuda.launch_counts()
-    for row in rows[:5]:
-        row["launches"] = int(counts.get(row["name"], 0))
-        check(row["launches"] > 0, f"{row['name']} was not launched by the scan")
+    for name in SCAN_KERNELS:
+        check(counts.get(name, 0) > 0, f"{name} was not launched by the scan")
+    take_launches(rows, SCAN_KERNELS, counts)
     ctr = res.counters
     stages = " ".join(
         f"{s} {ctr.get(f'device_ms_{s}', 0.0) / ctr['batches']:.3f} ms"
@@ -644,6 +1020,17 @@ def main() -> int:
         f"{ctr['audio_s_per_s']:.1f} audio-s/s (scan loop {ctr['time_scan_s']:.4f} s; "
         f"with the bank build {wall:.4f} s); mean device time per batch "
         f"({ctr['batches']:.0f} batches): {stages} (CUDA events); launches {counts}")
+
+    def bank_build(b):
+        """What ``detect_corpus_stream`` does before its loop (bf16 bank)."""
+        def build():
+            w_, c_ = b.llr()
+            return fs.build_fft_bank(filters_to_flat(w_), c_, mm_dtype=None)
+        return build
+
+    report_busy(torch, say, "scan",
+                lambda: detect_corpus_stream(corpus, bank, scan_cfg, target_phone="aa"),
+                bank_build(bank), ctr)
     ref = detect_corpus_stream(corpus, bank, scan_cfg, target_phone="aa", plain=True)
     dk, dp = res.detections, ref.detections
     check(len(dk.scores) > 0 and bool(np.isfinite(dk.scores).all()), "no detections")
@@ -670,8 +1057,7 @@ def main() -> int:
                  "fft_idft", "pair_llr", "banded_dtw"):
         check(counts.get(name, 0) > 0, f"{name} was not launched by the DTW + int8 scan")
     check(counts.get("fft_binmm", 0) == 0, "the int8 scan launched the bf16 bin matmul")
-    for row in rows[5:]:
-        row["launches"] = int(counts.get(row["name"], 0))
+    take_launches(rows, ("fft_binmm_int8", "pair_llr", "banded_dtw"), counts)
     ctr = res.counters
     stages = " ".join(
         f"{s} {ctr.get(f'device_ms_{s}', 0.0) / ctr['batches']:.3f} ms"
@@ -717,6 +1103,58 @@ def main() -> int:
     check(frac >= 0.99, f"exhaustive: matched peaks {frac} < 0.99")
     check(id_frac >= 0.99, f"exhaustive: (time, id) agree on {id_frac} < 0.99")
     check(diff <= 1e-4 * top, f"exhaustive: scores differ by {diff} > 1e-4 * {top}")
+    del res, ref
+
+    # ---- the log-mel scan at full width, then with DTW + int8 ----------
+    mel_fcfg = C.FrontendConfig(use_mel=True)
+    for label, dkw, expect in (
+        ("log-mel scan", {}, MEL_KERNELS),
+        ("log-mel DTW + int8 scan", {"dtw_rescore": True, "int8_spectra": True},
+         MEL_KERNELS[:4] + ("fft_binmm_int8", "fft_idft", "pair_llr", "banded_dtw")),
+    ):
+        mcfg = C.PipelineConfig(frontend=mel_fcfg, detect=C.DetectConfig(batch_size=B, **dkw))
+        detect_corpus_stream(corpus.head(B), bank_mel, mcfg, target_phone="aa")   # warm-up
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        res = detect_corpus_stream(corpus, bank_mel, mcfg, target_phone="aa")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _cuda.launch_counts()
+        ctr = res.counters
+        for name in expect:
+            check(counts.get(name, 0) > 0, f"{name} was not launched by the {label}")
+        for name in ("frontend_planes", "select_binspread"):
+            check(counts.get(name, 0) == 0, f"the {label} launched {name}")
+        check(counts.get("radix_counts", 0) == len(fp.RADIX_WIDTHS) * ctr["batches"],
+              f"{label}: {counts.get('radix_counts', 0)} radix launches")
+        if not dkw:
+            take_launches(rows, ("frontend_planes_mel", "radix_counts", "binspread"), counts)
+        stages = " ".join(
+            f"{s_} {ctr.get(f'device_ms_{s_}', 0.0) / ctr['batches']:.3f} ms"
+            for s_ in ("frontend", "score", "nms", "dtw") if f"device_ms_{s_}" in ctr
+        )
+        say(f"{label}: {ctr['utterances']:.0f} utterances, {ctr['audio_seconds']:.1f} "
+            f"audio-s, {ctr['audio_s_per_s']:.1f} audio-s/s (scan loop "
+            f"{ctr['time_scan_s']:.4f} s; with the bank build {wall:.4f} s); mean device "
+            f"time per batch ({ctr['batches']:.0f} batches): {stages} (CUDA events); "
+            f"launches {counts}")
+        if not dkw:
+            report_busy(torch, say, label,
+                        lambda: detect_corpus_stream(corpus, bank_mel, mcfg, target_phone="aa"),
+                        bank_build(bank_mel), ctr)
+        ref = detect_corpus_stream(corpus, bank_mel, mcfg, target_phone="aa", plain=True)
+        dk, dp = res.detections, ref.detections
+        check(len(dk.scores) > 0 and bool(np.isfinite(dk.scores).all()),
+              f"{label}: no detections")
+        frac, id_frac, diff, top = match_detections(dk, dp)
+        say(f"{label} vs plain scan: {len(dk.scores)} vs {len(dp.scores)} detections, "
+            f"{frac:.4f} matched peaks, {id_frac:.4f} same template on matched, score max "
+            f"diff {diff:.6g} = {diff / top:.3g} of max|score| {top:.6g} (tolerance 4e-3)")
+        check(frac >= 0.99, f"{label}: matched peaks {frac} < 0.99")
+        check(id_frac >= 0.99, f"{label}: template ids agree on {id_frac} < 0.99")
+        check(diff <= 4e-3 * top, f"{label}: scores differ by {diff} > 4e-3 * {top}")
+        del res, ref
 
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -14,7 +14,9 @@
 // two shared stages with the next tile's global loads in flight in
 // registers, mma.sync m16n8k32 s8 x s8 -> s32.  The packed A operand is
 // built in its load (the -Xr block by a per-byte negation), never
-// materialized.  W2 is [2D, K] with K contiguous, but the s8 B fragment
+// materialized; where D is not a multiple of 16 (log-mel D = 504) each
+// 16-byte A chunk is two 8-byte loads, since a chunk may then straddle
+// the Xr | Xi seam and rows are only 8-byte aligned.  W2 is [2D, K] with K contiguous, but the s8 B fragment
 // wants 4 consecutive k per register: each thread loads 4 k-rows x 4
 // templates (one 32-bit load per row, 32 contiguous bytes per 8 lanes)
 // and transposes the 4 x 4 bytes with byte permutes before its 32-bit
@@ -51,6 +53,23 @@ __device__ __forceinline__ uint32_t lds32(const int8_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// 8 packed A bytes at row r (< m of its half), packed column k (a
+// multiple of 8): the -Xr block by a per-byte negation, exact in +-127.
+// D % 8 == 0, so the 8 bytes lie in one half of the [Xr | Xi] row.
+__device__ __forceinline__ uint2 load_a8(const int8_t* __restrict__ xr,
+                                         const int8_t* __restrict__ xi, size_t row_off,
+                                         bool lower, int k, int D) {
+  const bool second = k >= D;
+  const int8_t* src = lower ? (second ? xr : xi) : (second ? xi : xr);
+  uint2 v = *reinterpret_cast<const uint2*>(src + row_off + (second ? k - D : k));
+  if (lower && second) { v.x = __vsub4(0u, v.x); v.y = __vsub4(0u, v.y); }
+  return v;
+}
+
+// V16: D % 16 == 0, so each thread's 16 A bytes are one 16-byte load;
+// otherwise (D % 8 == 0: rows of 504 bytes at log-mel D = 504 are only
+// 8-byte aligned) two 8-byte loads, each zero past 2D.
+template <bool V16>
 __global__ void __launch_bounds__(THREADS)
 binmm_int8_kernel(const int8_t* __restrict__ xr, const int8_t* __restrict__ xi,
                   const int8_t* __restrict__ w2, const float* __restrict__ sc,
@@ -85,14 +104,21 @@ binmm_int8_kernel(const int8_t* __restrict__ xr, const int8_t* __restrict__ xi,
       const int k = k0 + (tid & 3) * 16;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
       if (row < M && k < Kd) {
-        const bool lower = row >= mh, second = k >= D;
-        const int r = lower ? row - mh : row;
-        const int kk = second ? k - D : k;
-        const int8_t* src = lower ? (second ? xr : xi) : (second ? xi : xr);
-        v = __ldg(reinterpret_cast<const uint4*>(src + ((size_t)z * mh + r) * D + kk));
-        if (lower && second) {      // -Xr: per-byte negation, exact in +-127
-          v.x = __vsub4(0u, v.x); v.y = __vsub4(0u, v.y);
-          v.z = __vsub4(0u, v.z); v.w = __vsub4(0u, v.w);
+        const bool lower = row >= mh;
+        const size_t row_off = ((size_t)z * mh + (lower ? row - mh : row)) * D;
+        if (V16) {
+          const bool second = k >= D;
+          const int8_t* src = lower ? (second ? xr : xi) : (second ? xi : xr);
+          v = __ldg(reinterpret_cast<const uint4*>(src + row_off + (second ? k - D : k)));
+          if (lower && second) {    // -Xr: per-byte negation, exact in +-127
+            v.x = __vsub4(0u, v.x); v.y = __vsub4(0u, v.y);
+            v.z = __vsub4(0u, v.z); v.w = __vsub4(0u, v.w);
+          }
+        } else {
+          const uint2 lo = load_a8(xr, xi, row_off, lower, k, D);
+          const uint2 hi = k + 8 < Kd ? load_a8(xr, xi, row_off, lower, k + 8, D)
+                                      : make_uint2(0u, 0u);
+          v = make_uint4(lo.x, lo.y, hi.x, hi.y);
         }
       }
       ra[c] = v;
@@ -191,13 +217,14 @@ extern "C" const char* tsr_cuda_error_string(int err) {
 }
 
 // xr, xi [bins, m, D] int8, w2 [bins, 2D, K] int8, sc [bins, K] f32
-// -> out [2, bins, m, K] bf16.  D % 16 == 0, K % 4 == 0, 16-byte
+// -> out [2, bins, m, K] bf16.  D % 8 == 0, K % 4 == 0, 16-byte
 // aligned base pointers.
 extern "C" int tsr_fft_binmm_int8(const void* xr, const void* xi, const void* w2,
                                   const void* sc, void* out, int bins, int m, int D, int K,
                                   void* stream) {
   const dim3 grid((2 * m + BM - 1) / BM, (K + BN - 1) / BN, bins);
-  binmm_int8_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = D % 16 == 0 ? binmm_int8_kernel<true> : binmm_int8_kernel<false>;
+  kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(xr), static_cast<const int8_t*>(xi),
       static_cast<const int8_t*>(w2), static_cast<const float*>(sc), static_cast<bf16*>(out),
       bins, m, D, K);

@@ -13,7 +13,8 @@
 //
 // One block of 4 warps per pair.  The [L, m] output is cut into
 // 32 x 40 tiles (2 x 5 mma.sync m16n8k16 tiles); the four warps split
-// the D contraction in 32-wide chunks and add their partial tiles in
+// the D contraction in 32-wide chunks (the last one zero-filled past D
+// when D is not a multiple of 32) and add their partial tiles in
 // shared memory.  Fragments are loaded straight from device memory: a
 // contraction is a sum, so the k order inside a chunk may be permuted
 // as long as A and B agree, and each lane takes 8 consecutive d of its
@@ -73,7 +74,7 @@ pair_llr_kernel(const uint8_t* __restrict__ feats, const bf16* __restrict__ w,
   const long long row0 = rowstart[pair];
   const int kid = min(max(ids[pair], 0), K - 1);
   const bf16* wk = w + (size_t)kid * L * D;
-  const int nchunks = D / KC;
+  const int nchunks = (D + KC - 1) / KC;   // the last chunk zero-filled past D
 
   for (int i0 = 0; i0 < L; i0 += TM) {
     for (int j0 = 0; j0 < m; j0 += TN) {
@@ -88,6 +89,9 @@ pair_llr_kernel(const uint8_t* __restrict__ feats, const bf16* __restrict__ w,
 #pragma unroll 2
       for (int ch = warp; ch < nchunks; ch += WARPS) {
         const int d = ch * KC + t * 8;
+        // D % 8 == 0: a lane's 8 d lie wholly below D or wholly past
+        // it, and past it both operands read as zero
+        const bool d_in = d < D;
         // A: filter rows i0 + 16 mt + g (+8), d .. d+7
         uint4 a[MT][2];
 #pragma unroll
@@ -95,8 +99,9 @@ pair_llr_kernel(const uint8_t* __restrict__ feats, const bf16* __restrict__ w,
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int i = i0 + 16 * mt + g + 8 * h;
-            a[mt][h] = i < L ? __ldg(reinterpret_cast<const uint4*>(wk + (size_t)i * D + d))
-                             : make_uint4(0u, 0u, 0u, 0u);
+            a[mt][h] = (i < L && d_in)
+                           ? __ldg(reinterpret_cast<const uint4*>(wk + (size_t)i * D + d))
+                           : make_uint4(0u, 0u, 0u, 0u);
           }
         // B: map rows row0 + j0 + 8 nt + g, d .. d+7, as bf16
         uint2 b[NT][2];
@@ -105,7 +110,7 @@ pair_llr_kernel(const uint8_t* __restrict__ feats, const bf16* __restrict__ w,
           const int j = j0 + 8 * nt + g;
           const long long r = row0 + j;
           uint2 raw = make_uint2(0u, 0u);
-          if (j < m && r >= 0 && r < R)
+          if (d_in && j < m && r >= 0 && r < R)
             raw = __ldg(reinterpret_cast<const uint2*>(feats + (size_t)r * D + d));
           b[nt][0] = bools_to_bf16(raw.x);
           b[nt][1] = bools_to_bf16(raw.y);
@@ -157,8 +162,8 @@ extern "C" const char* tsr_cuda_error_string(int err) {
 }
 
 // feats [R, D] bool (uint8), w [K, L, D] bf16, rowstart [N] int32,
-// ids [N] int32 -> out [N, L, m] f32.  D % 32 == 0, 16-byte aligned
-// base pointers.
+// ids [N] int32 -> out [N, L, m] f32.  D % 8 == 0 (D = 8 F' edge
+// channels: 504 at log-mel n_mels 64), 16-byte aligned base pointers.
 extern "C" int tsr_pair_llr(const void* feats, const void* w, const void* rowstart,
                             const void* ids, void* out, int R, int N, int K, int L,
                             int D, int m, void* stream) {

@@ -1,17 +1,31 @@
 """Plane-major frontend: waveforms -> flat binary feature map.
 
 Counterpart of ``template_speech_recognition_tpu.frontend.planes``
-(``frontend_batch_flat``, ``_windowed_frames``, ``_dual_ranks``).  Two
-kernels carry it: the response planes (``ops.frontend_kernel``) and the
-select + binarize + spread (``ops.selbin_kernel``), so the planes cross
-device memory once between them.
+(``frontend_batch_flat``, ``response_planes``, ``plane_order_statistics``,
+``binarize_spread_flat``, ``_windowed_frames``, ``_dual_ranks``).  Two
+paths compute one map, bit for bit:
+
+* the two-kernel path: the response planes (``ops.frontend_kernel``)
+  and the select + binarize + spread (``ops.selbin_kernel``), so the
+  planes cross device memory once between them;
+* the layered path: the same planes kernel, then the order statistics
+  by an 11-level radix select whose counting passes are a kernel
+  (``ops.radix_kernel``; the digits are picked on the device, with no
+  host sync between levels), then binarize + frequency spread
+  (``ops.binspread_kernel``), time dilation and the row mask.
+
+``frontend_batch_flat`` takes the two-kernel path wherever both of its
+kernels take the shape (F a multiple of 4 and a DFT width of at most
+992), at any T, and the layered path otherwise: log-mel at n_mels 64
+(F = 63) is layered.  The rule reads shapes only, so the CPU runs the
+path the card runs.
 
 The output is the flat channel-major map [B, T_pad, D = 8*F'] (d =
 e*F' + f; channel 2i = plane i > its rank-k statistic, channel 2i+1 =
 plane i < its rank-(n-1-k) statistic) with T_pad = frames rounded up
 to 128 on every device; rows >= valid are False.  (On the CPU the JAX
-reference takes its layered path and returns T - 1 rows; the rows
-below valid are the same.)
+reference takes its XLA path and returns T - 1 rows; the rows below
+valid are the same.)
 """
 
 from __future__ import annotations
@@ -22,15 +36,30 @@ import numpy as np
 import torch
 
 from template_speech_recognition_tpu_torch.config import FrontendConfig
-from template_speech_recognition_tpu_torch.ops import framing
-from template_speech_recognition_tpu_torch.ops.frontend_kernel import (
-    edge_response_planes,
-    edge_response_planes_plain,
+from template_speech_recognition_tpu_torch.ops import frontend_kernel, framing
+from template_speech_recognition_tpu_torch.ops.binspread_kernel import (
+    binarize_freqspread,
+    binarize_freqspread_plain,
+)
+from template_speech_recognition_tpu_torch.ops.edges import (
+    _dilate_axis,
+    key_to_float,
+    order_keys32,
+)
+from template_speech_recognition_tpu_torch.ops.radix_kernel import (
+    radix_level_counts,
+    radix_level_counts_plain,
+    to_bits32,
 )
 from template_speech_recognition_tpu_torch.ops.selbin_kernel import (
     select_binspread,
     select_binspread_plain,
 )
+
+# The reference's kernel schedule of digit widths (its XLA path takes
+# 8 x 4 bits); any schedule selects the same element, and keeping this
+# one lets each level's counts be compared launch by launch.
+RADIX_WIDTHS = (2,) + (3,) * 10
 
 
 class FlatFeatureMap(NamedTuple):
@@ -40,11 +69,114 @@ class FlatFeatureMap(NamedTuple):
     valid_frames: torch.Tensor  # [B] int32: rows < valid are real
 
 
+def _fused_ok(cfg: FrontendConfig) -> bool:
+    """Shapes both kernels of the two-kernel path take.  Unlike the
+    reference, no budget on T: its select keeps a whole plane resident
+    in VMEM, while the port's streams the planes through L2 in radix
+    passes and has no residency limit."""
+    return (
+        frontend_kernel.supported(cfg.nfft, cfg.n_mels if cfg.use_mel else 0)
+        and cfg.feature_freqs % 4 == 0
+    )
+
+
 def _windowed_frames(waveforms: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
     """[B, S] -> [B, T, frame_length] preemphasized windowed frames."""
     y = framing.preemphasize(waveforms, cfg.preemphasis)
     frames = framing.frame_signal(y, cfg.frame_length, cfg.hop_length)
     return frames * framing.hamming_window(cfg.frame_length, waveforms.device)
+
+
+def _stacked_planes(frames: torch.Tensor, cfg: FrontendConfig,
+                    plain: bool) -> torch.Tensor:
+    """[B, T, frame_length] -> plane-major [4, B*T_pad, F] (T_pad = T
+    rounded up to 128; rows >= T - 1 are garbage)."""
+    b, t, fl = frames.shape
+    t_pad = ((t + 127) // 128) * 128
+    fp = torch.zeros((b, t_pad, fl), dtype=torch.float32, device=frames.device)
+    fp[:, :t] = frames
+    fn = (frontend_kernel.edge_response_planes_plain if plain
+          else frontend_kernel.edge_response_planes)
+    return fn(
+        fp.reshape(b * t_pad, fl), cfg.nfft, sample_rate=cfg.sample_rate,
+        n_mels=cfg.n_mels if cfg.use_mel else 0,
+    )
+
+
+def response_planes(frames: torch.Tensor, cfg: FrontendConfig,
+                    plain: bool = False) -> torch.Tensor:
+    """Windowed frames [B, T, frame_length] -> the four oriented
+    difference planes [B, 4, T_pad, F'] as a view of the kernel's
+    plane-major output (rows >= T - 1 are garbage; callers mask them
+    by valid_frames, which is always <= T - 1)."""
+    b = frames.shape[0]
+    stacked = _stacked_planes(frames, cfg, plain)
+    return stacked.reshape(4, b, -1, stacked.shape[-1]).transpose(0, 1)
+
+
+def plane_order_statistics(
+    planes: torch.Tensor,         # [B, P, T, F]
+    valid_frames: torch.Tensor,   # [B] int
+    quantile: float,
+    plain: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact order statistics of each plane's valid cells at ranks
+    k = min(n-1, floor(f32(q) * f32(n))) and n-1-k: (os_k, os_{n-1-k}),
+    each [B, P] float32, bitwise those of the reference.
+
+    Dual-rank radix bisection over the monotone uint32 keys (masked
+    cells 0xFFFFFFFF) with the digit widths ``RADIX_WIDTHS``: each level
+    counts, per (plane, rank), the keys whose top bits are <= each
+    candidate extension of the prefix (``ops.radix_kernel``, or its
+    plain version with ``plain``) and descends into the first candidate
+    whose count reaches rank + 1.  Every step stays on the device."""
+    b, p, t, f = planes.shape
+    dev = planes.device
+    # rows (p, b): the layered path hands over a [B, P] view of the
+    # plane-major kernel-1 output, for which this is the storage order
+    keys = order_keys32(planes.transpose(0, 1))                 # [P, B, T, F]
+    rv = torch.arange(t, device=dev)[None, :] < valid_frames.to(dev)[:, None]
+    keys = keys.masked_fill(~rv[None, :, :, None], -1).reshape(p * b, t * f)
+    need = _dual_ranks(valid_frames.to(dev), f, quantile).to(torch.int64)
+    need = need[None, :, :, None]                                # [1, B, 2, 1]
+    count = radix_level_counts_plain if plain else radix_level_counts
+    iota = {w: torch.arange(1 << w, device=dev) for w in set(RADIX_WIDTHS)}
+    prefix = torch.zeros((p, b, 2), dtype=torch.int64, device=dev)
+    bits_done = 0
+    for w in RADIX_WIDTHS:
+        bits_done += w
+        base = prefix << w
+        cand = base[..., None] + iota[w]                           # [P, B, 2, 2^w]
+        cnt = count(keys, to_bits32(cand.reshape(p * b, 2 << w)), 32 - bits_done)
+        # the counts rise with the candidate and the widest reaches the
+        # rank, so the first candidate that does is the number that do not
+        prefix = base + (cnt.reshape(p, b, 2, 1 << w) < need).sum(-1)
+    os_ = key_to_float(prefix).transpose(0, 1)                   # [B, P, 2]
+    return os_[..., 0], os_[..., 1]
+
+
+def binarize_spread_flat(
+    planes: torch.Tensor,         # [B, P, T, F]
+    os_hi: torch.Tensor,          # [B, P] rank-k order statistic
+    os_lo: torch.Tensor,          # [B, P] rank-(n-1-k) order statistic
+    valid_frames: torch.Tensor,   # [B]
+    spread_time: int,
+    spread_freq: int,
+    plain: bool = False,
+) -> torch.Tensor:                # [B, T, 2P*F] bool
+    """Binarize both polarities of each plane, dilate, emit the flat
+    map: binarize + frequency spread in one pass
+    (``ops.binspread_kernel``, or its plain version with ``plain``),
+    then the time dilation and the row mask."""
+    t = planes.shape[2]
+    dev = planes.device
+    vf = valid_frames.to(device=dev, dtype=torch.int32)
+    fn = binarize_freqspread_plain if plain else binarize_freqspread
+    flat = fn(planes, os_hi.contiguous(), os_lo.contiguous(), vf, spread_freq)
+    if spread_time:
+        flat = _dilate_axis(flat, spread_time, 1)
+    row_valid = torch.arange(t, device=dev)[None, :, None] < vf[:, None, None]
+    return flat.to(torch.bool) & row_valid
 
 
 def _dual_ranks(valid_frames: torch.Tensor, f: int, quantile: float) -> torch.Tensor:
@@ -67,10 +199,13 @@ def frontend_batch_flat(
     num_valid_samples: torch.Tensor,  # [B]
     cfg: FrontendConfig,
     plain: bool = False,
+    layered: bool | None = None,
 ) -> FlatFeatureMap:
     """[B, S] padded waveforms -> flat binary feature maps.
 
-    ``plain=True`` runs the kernels' plain PyTorch versions on any
+    ``layered`` picks the path (None: the two-kernel path where its
+    kernels take the shape, else the layered one); both give the same
+    map.  ``plain=True`` runs the kernels' plain PyTorch versions on any
     device (the reference the kernels are held against)."""
     dev = waveforms.device
     frames = _windowed_frames(waveforms, cfg)
@@ -80,21 +215,24 @@ def frontend_batch_flat(
         torch.div(nv - cfg.frame_length, cfg.hop_length, rounding_mode="floor"),
         torch.zeros_like(nv),
     ).to(torch.int32)
-    b, t = frames.shape[0], frames.shape[1]
-    t_pad = ((t + 127) // 128) * 128
-    f = cfg.feature_freqs
-    fp = torch.zeros((b, t_pad, cfg.frame_length), dtype=torch.float32, device=dev)
-    fp[:, :t] = frames
-    planes_fn = edge_response_planes_plain if plain else edge_response_planes
-    selbin_fn = select_binspread_plain if plain else select_binspread
-    stacked = planes_fn(
-        fp.reshape(b * t_pad, cfg.frame_length), cfg.nfft,
-        sample_rate=cfg.sample_rate,
-        n_mels=cfg.n_mels if cfg.use_mel else 0,
-    )                                                   # [4, B*T_pad, F]
+    if layered is None:
+        layered = not _fused_ok(cfg)
+    if layered:
+        planes = response_planes(frames, cfg, plain=plain)
+        os_hi, os_lo = plane_order_statistics(
+            planes, valid_frames, cfg.edge_quantile, plain=plain
+        )
+        flat = binarize_spread_flat(
+            planes, os_hi, os_lo, valid_frames, cfg.spread_time,
+            cfg.spread_freq, plain=plain,
+        )
+        return FlatFeatureMap(flat, valid_frames)
+    b, f = frames.shape[0], cfg.feature_freqs
+    stacked = _stacked_planes(frames, cfg, plain)               # [4, B*T_pad, F]
     need = _dual_ranks(valid_frames, f, cfg.edge_quantile)
+    selbin_fn = select_binspread_plain if plain else select_binspread
     flat_u8, _keys = selbin_fn(
-        stacked.reshape(4, b, t_pad, f), need, valid_frames,
+        stacked.reshape(4, b, -1, f), need, valid_frames,
         cfg.spread_freq, cfg.spread_time,
     )
     return FlatFeatureMap(flat_u8.to(torch.bool), valid_frames)

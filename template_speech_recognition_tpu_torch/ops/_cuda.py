@@ -112,13 +112,15 @@ def load(stem: str) -> ctypes.CDLL:
         return lib
 
 
-def declare(lib: ctypes.CDLL, fn: str, n_ptr: int, n_int: int):
-    """Declare a C entry taking ``n_ptr`` pointers, ``n_int`` ints and
-    the stream (in that order), returning the CUDA error code."""
+def declare(lib: ctypes.CDLL, fn: str, n_ptr: int, n_int: int, n_long: int = 0):
+    """Declare a C entry taking ``n_ptr`` pointers, ``n_long`` 64-bit
+    ints, ``n_int`` ints and the stream (in that order), returning the
+    CUDA error code."""
     f = getattr(lib, fn)
-    f.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [
-        ctypes.c_void_p
-    ]
+    f.argtypes = (
+        [ctypes.c_void_p] * n_ptr + [ctypes.c_longlong] * n_long
+        + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+    )
     f.restype = ctypes.c_int
     return f
 
@@ -127,8 +129,9 @@ def stream_ptr(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    """A tensor's device address (NULL for ``None``: an unused operand)."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def check(lib: ctypes.CDLL, err: int, name: str) -> None:

@@ -1,8 +1,10 @@
-"""DFT and mel bases for the frontend.
+"""DFT and mel bases for the frontend, and the log(-mel) spectrograms.
 
 Counterpart of ``template_speech_recognition_tpu.ops.dft``: the basis
 matrices come from the same float64 -> float32 recipe, so the port and
-the reference multiply by bit-identical matrices.
+the reference multiply by bit-identical matrices.  The spectrograms are
+fp32 matrix products with TF32 off (the reference's HIGHEST precision:
+the log amplifies error in near-zero power bins).
 """
 
 from __future__ import annotations
@@ -56,3 +58,24 @@ def _mel_np(sample_rate: int, nfft: int, n_mels: int) -> np.ndarray:
 def mel_filterbank(sample_rate: int, nfft: int, n_mels: int, device=None):
     """HTK-style triangular filters, [nfft//2+1, n_mels] (oracle-identical)."""
     return torch.from_numpy(_mel_np(sample_rate, nfft, n_mels)).to(device)
+
+
+def _power(frames: torch.Tensor, nfft: int) -> torch.Tensor:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cos_m, sin_m = dft_matrices(frames.shape[-1], nfft, frames.device)
+    re = frames @ cos_m
+    im = frames @ sin_m
+    return re * re + im * im
+
+
+def log_magnitude_spectrogram(frames: torch.Tensor, nfft: int) -> torch.Tensor:
+    """Windowed frames [..., T, frame_length] -> 0.5 * log(|DFT|^2 + eps)
+    [..., T, nfft//2 + 1], float32."""
+    return 0.5 * torch.log(_power(frames, nfft) + float(LOG_EPS))
+
+
+def log_mel_spectrogram(frames: torch.Tensor, nfft: int, sample_rate: int,
+                        n_mels: int) -> torch.Tensor:
+    """Windowed frames [..., T, frame_length] -> log-mel [..., T, n_mels]."""
+    fb = mel_filterbank(sample_rate, nfft, n_mels, frames.device)
+    return torch.log(_power(frames, nfft) @ fb + float(LOG_EPS))

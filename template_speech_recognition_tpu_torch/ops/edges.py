@@ -1,9 +1,10 @@
-"""Order keys and binary dilation helpers.
+"""Order keys, edge responses and binary dilation helpers.
 
 Counterpart of ``template_speech_recognition_tpu.ops.edges``.  PyTorch
 has no full uint32 arithmetic, so the monotone uint32 order keys are
 held in int64 tensors (values 0 .. 2**32-1); every comparison on them
-is then exactly the uint32 comparison.
+is then exactly the uint32 comparison.  ``order_keys32`` gives the same
+keys as int32 bit patterns, for the radix counting kernel.
 """
 
 from __future__ import annotations
@@ -22,6 +23,14 @@ def order_keys(x: torch.Tensor) -> torch.Tensor:
     return torch.where(bits >= _SIGN, (~bits) & _MASK32, bits | _SIGN)
 
 
+def order_keys32(x: torch.Tensor) -> torch.Tensor:
+    """``order_keys`` as int32 tensors holding the uint32 bits, in three
+    elementwise passes: ``bits ^ ((bits >> 31) | 0x80000000)`` is
+    ``~bits`` for a set sign bit and ``bits | 0x80000000`` otherwise."""
+    bits = x.to(torch.float32).view(torch.int32)
+    return bits ^ ((bits >> 31) | -(1 << 31))
+
+
 def key_to_float(key: torch.Tensor) -> torch.Tensor:
     """Inverse of ``order_keys``."""
     key = key.to(torch.int64)
@@ -29,6 +38,20 @@ def key_to_float(key: torch.Tensor) -> torch.Tensor:
     # the same 32 bits as an int32, then reinterpreted as float32
     bits = torch.where(bits >= _SIGN, bits - (1 << 32), bits)
     return bits.to(torch.int32).view(torch.float32)
+
+
+def edge_responses(spec: torch.Tensor) -> torch.Tensor:
+    """[..., T, F] -> [..., T-1, F-1, 8]; orientation/polarity layout
+    identical to the reference's ``edge_responses``."""
+    d_time = (spec[..., 1:, :] - spec[..., :-1, :])[..., :, :-1]
+    d_freq = (spec[..., :, 1:] - spec[..., :, :-1])[..., :-1, :]
+    d_diag = spec[..., 1:, 1:] - spec[..., :-1, :-1]
+    d_anti = spec[..., 1:, :-1] - spec[..., :-1, 1:]
+    chans = []
+    for d in (d_time, d_freq, d_diag, d_anti):
+        chans.append(d)
+        chans.append(-d)
+    return torch.stack(chans, dim=-1)
 
 
 def _shifted(x: torch.Tensor, s: int, dim: int) -> torch.Tensor:

@@ -25,6 +25,7 @@ bank) replaces the same ``pallas_call`` running ``_kernel_q`` (line
 k])``.  Its kernel (``csrc/fft_binmm_int8.cu``) keeps the tiling above
 on mma.sync m16n8k32 s8; W2 is K-contiguous, so each thread transposes
 4 x 4 bytes of it with byte permutes on the way into shared memory.
+D need only be a multiple of 8 (log-mel D = 504: rows 8-byte aligned).
 What bounds it: bytes, 461 MB (int8 W2 336 MB, xr/xi, bf16 output) in
 0.138 ms at 3.35 TB/s; 258 G int8 operations take 0.130 ms at 1979
 TOP/s.  The TPU path's ``k <= 4096`` gate (a Mosaic crash) is not
@@ -128,8 +129,8 @@ def fft_binmm_int8(xr, xi, w2, sc, out_dtype=torch.bfloat16):
             or tuple(sc.shape) != (bins, k)):
         raise ValueError(f"bad shapes: xr {tuple(xr.shape)}, w2 {tuple(w2.shape)}, "
                          f"sc {tuple(sc.shape)}")
-    if d % 16 or k % 4:
-        raise ValueError(f"D={d} must be a multiple of 16 and K={k} of 4")
+    if d % 8 or k % 4:
+        raise ValueError(f"D={d} must be a multiple of 8 and K={k} of 4")
     if any(a.data_ptr() % 16 for a in (xr3, xi3, w2)):
         raise ValueError("xr, xi and w2 must be 16-byte aligned")
     out = torch.empty((2, bins, m, k), dtype=torch.bfloat16, device=xr.device)

@@ -14,7 +14,8 @@ rows.
 
 CUDA design (``csrc/pair_llr.cu``): one block of 4 warps per pair,
 mma.sync bf16 with fp32 accumulation, the D contraction split across
-the warps; fragments load straight from device memory (16 bytes of
+the warps in 32-wide chunks (D need only be a multiple of 8, as D = 8F'
+always is: the last chunk is zero-filled); fragments load straight from device memory (16 bytes of
 filter row, 8 bool bytes of map row per lane), and the bools become
 bf16 in registers, so no bf16 copy of the map is ever made.
 
@@ -68,8 +69,8 @@ def pair_llr(feats, w, rowstart, ids, m: int) -> torch.Tensor:
     if dw != d or tuple(ids.shape) != (n,):
         raise ValueError(f"bad shapes: feats {tuple(feats.shape)}, w {tuple(w.shape)}, "
                          f"rowstart {tuple(rowstart.shape)}, ids {tuple(ids.shape)}")
-    if d % 32 or feats.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError(f"D={d} must be a multiple of 32 and the bases 16-byte aligned")
+    if d % 8 or feats.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError(f"D={d} must be a multiple of 8 and the bases 16-byte aligned")
     out = torch.empty((n, length, m), dtype=torch.float32, device=feats.device)
     if n == 0 or m == 0:
         return out

@@ -146,6 +146,29 @@ def test_pair_llr_plain_matches_pallas():
                                    atol=1e-5 * np.max(np.abs(want)))
 
 
+def test_pair_llr_plain_matches_pallas_at_log_mel_width():
+    """D = 504 (log-mel, 8 x 63: not a multiple of 32), as the mel scan's
+    verify-the-winner rescore hands it; the reference has no D constraint."""
+    feats, w, _c = _map_problem(seed=13, d=504)
+    b, t, d = feats.shape
+    m_pad = 16
+    rowstart = np.asarray([0, 9, t - 3, b * t - 5], np.int32)
+    ids = np.asarray([1, 0, 4, 2], np.int32)
+    w16 = jnp.asarray(w, jnp.bfloat16)
+    flat = np.zeros((-(-(b * t + m_pad + 8) // 8) * 8, d), np.float32)
+    flat[: b * t] = feats.reshape(b * t, d)
+    row0 = rowstart & ~7
+    ext = np.asarray(pair_llr_pallas(
+        jnp.asarray(flat, jnp.bfloat16), w16, jnp.asarray(row0 >> 3), jnp.asarray(ids),
+        m_pad + 8, interpret=True,
+    ))
+    want = np.stack([ext[p, :, o:o + m_pad] for p, o in enumerate(rowstart - row0)])
+    w16_t = torch.from_numpy(np.array(w16.astype(jnp.float32))).to(torch.bfloat16)
+    got = pair_llr(torch.from_numpy(feats), w16_t, torch.from_numpy(rowstart),
+                   torch.from_numpy(ids), m_pad).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.max(np.abs(want)))
+
+
 def _scores_close(got, want):
     got, want = np.asarray(got), np.asarray(want)
     assert got.shape == want.shape

@@ -14,6 +14,7 @@ on the CPU.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -81,6 +82,25 @@ def test_int8_binmm_plain_matches_pallas(four_d):
         assert got.dtype == torch.bfloat16
         assert tuple(got.shape) == (2, bins, nb * nblk, k)
         np.testing.assert_array_equal(got.to(torch.float32).numpy(), want)
+
+
+def test_int8_binmm_plain_matches_reference_at_log_mel_width():
+    """D = 504 (log-mel, not a multiple of 16): the reference takes its
+    XLA int8 product there (exact int32 sums, f32 flush, bf16 round);
+    bitwise."""
+    rng = np.random.default_rng(23)
+    bins, m, d, k = 3, 20, 504, 132
+    xr = rng.integers(-127, 128, (bins, m, d)).astype(np.int8)
+    xi = rng.integers(-127, 128, (bins, m, d)).astype(np.int8)
+    w2 = rng.integers(-127, 128, (bins, 2 * d, k)).astype(np.int8)
+    sc = (rng.random((bins, k)) * 1e-4).astype(np.float32)
+    x2 = jnp.concatenate([jnp.concatenate([xr, xi], 2), jnp.concatenate([xi, -xr], 2)], 1)
+    y = jax.lax.dot_general(x2, jnp.asarray(w2), (((2,), (1,)), ((0,), (0,))),
+                            preferred_element_type=jnp.int32)
+    y = (y.astype(jnp.float32) * jnp.asarray(sc)[:, None, :]).astype(jnp.bfloat16)
+    want = np.asarray(jnp.stack([y[:, :m], y[:, m:]]).astype(jnp.float32))
+    got = fft_binmm_int8(*[torch.from_numpy(a) for a in (xr, xi, w2, sc)])
+    np.testing.assert_array_equal(got.to(torch.float32).numpy(), want)
 
 
 def test_int8_binmm_is_exact_past_float32():

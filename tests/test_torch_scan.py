@@ -188,6 +188,103 @@ def test_scan_int8_spectra_matches_reference(synth, jbank4, tbank4, dtw):
         np.testing.assert_allclose(pairs[:, 0], pairs[:, 1], rtol=0, atol=1e-2 * top)
 
 
+@pytest.fixture(scope="module")
+def jbank_mel(synth):
+    """A JAX-trained log-mel bank (n_mels 64: F' = 63, D = 504), two
+    classes x two mixture components."""
+    cfg = JC.PipelineConfig(frontend=JC.FrontendConfig(use_mel=True),
+                            template=JC.TemplateConfig(num_components=2))
+    return train_bank(SyntheticAdapter(synth), ["aa", "iy"], cfg)
+
+
+@pytest.fixture(scope="module")
+def tbank_mel(jbank_mel):
+    return bank_from_numpy(
+        np.asarray(jbank_mel.templates), np.asarray(jbank_mel.background),
+        jbank_mel.labels, device="cpu",
+    )
+
+
+def _mel_cfgs(**detect_kw):
+    jcfg, tcfg = _cfgs(1, **detect_kw)
+    return (JC.override(jcfg, frontend=JC.FrontendConfig(use_mel=True)),
+            TC.override(tcfg, frontend=TC.FrontendConfig(use_mel=True)))
+
+
+@pytest.mark.parametrize("detect_kw", [{}, {"dtw_rescore": True}],
+                         ids=["scan", "dtw"])
+def test_mel_scan_matches_reference(synth, jbank_mel, tbank_mel, detect_kw):
+    """The log-mel scan (the layered frontend) with a JAX-trained mel
+    bank: identical detections (times and template ids), scores at rtol
+    1e-5, with and without DTW rescoring."""
+    assert tbank_mel.templates.shape[2] == 63
+    jcfg, tcfg = _mel_cfgs(**detect_kw)
+    want = jax_detect_corpus_stream(SyntheticAdapter(synth), jbank_mel, jcfg, "aa")
+    got = tscan.detect_corpus_stream(TAdapter(synth), tbank_mel, tcfg, "aa")
+    assert len(got.detections.scores) == len(want.detections.scores) > 0
+    for (sg, tg, kg), (sw, tw, kw) in zip(_per_utt(got), _per_utt(want)):
+        np.testing.assert_array_equal(tg, tw)
+        np.testing.assert_array_equal(kg, kw)
+        np.testing.assert_allclose(sg, sw, rtol=1e-5, atol=1e-6)
+    assert got.counters["frames"] == want.counters["frames"]
+
+
+@pytest.mark.parametrize("dtw", [False, True])
+def test_mel_scan_int8_spectra_matches_reference(synth, jbank_mel, tbank_mel, dtw):
+    """int8 spectra on the log-mel scan (D = 504): the int8 class of
+    ``test_scan_int8_spectra_matches_reference``."""
+    jcfg, tcfg = _mel_cfgs(dtw_rescore=dtw, int8_spectra=True)
+    want = jax_detect_corpus_stream(SyntheticAdapter(synth), jbank_mel, jcfg, "aa")
+    got = tscan.detect_corpus_stream(TAdapter(synth), tbank_mel, tcfg, "aa")
+    n = max(len(got.detections.scores), len(want.detections.scores))
+    n_match, n_same, pairs = _matched(got, want)
+    assert n > 0 and n_match >= 0.99 * n and n_same >= 0.99 * n_match
+    if dtw:
+        np.testing.assert_allclose(pairs[:, 0], pairs[:, 1], rtol=1e-5, atol=1e-6)
+    else:
+        top = np.max(np.abs(pairs[:, 1]))
+        np.testing.assert_allclose(pairs[:, 0], pairs[:, 1], rtol=0, atol=1e-2 * top)
+
+
+def test_mel_bank_scores_match_reference(jbank_mel, tbank_mel):
+    """The mel bank carried across scores a random D = 504 map as the
+    reference scores it (f32 FFT scorer, rtol 1e-4 of max|score|)."""
+    from template_speech_recognition_tpu.detect import fft_scorer as jfs
+    from template_speech_recognition_tpu.ops import layout as jlayout
+    from template_speech_recognition_tpu_torch.detect import fft_scorer as tfs
+    from template_speech_recognition_tpu_torch.ops.layout import filters_to_flat
+
+    rng = np.random.default_rng(12)
+    feats = rng.random((2, 300, 504)) < 0.2
+    jw, jc = jbank_mel.llr()
+    jb = jfs.build_fft_bank(jlayout.filters_to_flat(jw), jc, mm_dtype=jnp.float32)
+    want = np.asarray(jfs.fft_sliding_scores(jnp.asarray(feats, jnp.float32), jb,
+                                             use_pallas=False))
+    tw, tc = tbank_mel.llr()
+    tb = tfs.build_fft_bank(filters_to_flat(tw), tc, mm_dtype=torch.float32)
+    got = tfs.fft_sliding_scores(torch.from_numpy(feats), tb).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.max(np.abs(want)))
+
+
+def test_cli_detect_mel_config(tmp_path, capsys, jbank_mel):
+    """``--config`` (a JSON PipelineConfig file, as in the reference's
+    CLI) switches the scan to log-mel features."""
+    from template_speech_recognition_tpu_torch.cli import main
+
+    bank_path = str(tmp_path / "bank.npz")
+    jbank_mel.save(bank_path)
+    cfg_path = tmp_path / "mel.json"
+    cfg_path.write_text(json.dumps({"frontend": {"use_mel": True}}))
+    out = str(tmp_path / "dets.npz")
+    assert main(["detect", "--bank", bank_path, "--phone", "aa", "--config",
+                 str(cfg_path), "--dtw-rescore", "--device", "cpu", "--out", out]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    z = np.load(out)
+    assert len(z["scores"]) == line["num_detections"] > 0
+    assert np.all(np.isfinite(z["scores"]))
+
+
 def test_manifest_and_pcm16_upload_raise(synth, tbank, monkeypatch):
     cfg = TC.PipelineConfig()
     with pytest.raises(NotImplementedError, match="manifest"):
