@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. builds the ten CUDA kernels of the detection scan from
+1. builds the eleven CUDA kernels of the port from
    ``template_speech_recognition_tpu_torch/csrc`` (one nvcc per source,
    all started together);
 2. calls each kernel's wrapper on the card at the shapes the scan gives
@@ -23,12 +23,16 @@
    not the enqueue; the yardstick is ``torch.kthvalue`` for both ranks,
    which stands for the whole 11-launch select), binarize + spread, the
    layered path against the two-kernel path at the default shape
-   (bitwise), and pair LLR and the int8 bin matmul at D = 504.
+   (bitwise), and pair LLR and the int8 bin matmul at D = 504.  The
+   direct correlation kernel runs at the reference's bench shape (8
+   maps of T = 3000 frames of the scan's frontend, K = 1024, L = 32,
+   D = 2048; its yardstick is ``conv1d`` in bf16).
    It also runs every kernel once at small ragged shapes (partial
    tiles, odd nfft, an utterance with no valid row, ties and -0.0,
    DTW at L = 32, 48, 96, 128 and 200 with ragged segment lengths and band
    1, LLR windows past the map's end, F = 39 and 63, unaligned radix
-   rows) and holds it against its plain version;
+   rows, correlation at K = 3, D = 40 and 504, L = 1, 9, 48 and T) and
+   holds it against its plain version;
 3. drives the scan itself, ``detect_corpus_stream``, at full width over
    19 utterances of 30 s (two batches of 8 and a tail of 3 padded to
    4, whose padding row has no valid frame), with every launch count
@@ -43,7 +47,15 @@
    layered frontend) at full width over the same 19 utterances with a
    random bank of 1024 log-mel templates, then the log-mel scan with DTW
    rescoring on int8 spectra, each against its plain run, with the
-   launch counts set to 0 just before each and read just after.
+   launch counts set to 0 just before each and read just after;
+6. drives the backend-selectable scorer,
+   ``sliding_scores_backend(backend="pallas")``, on the 8 maps one
+   utterance at a time (the correlation kernel's path), against
+   ``backend="fft"``; the streaming scan with ``score_backend="conv"``
+   (the f32 conv, as in the reference) against the default scan's
+   detections; and ``pipeline.detect_corpus(exact_scores=True)`` on one
+   batch, whose int32 scores of one utterance are held bitwise against
+   the same function on the CPU.
 
 The default and the log-mel scan are each run once more under
 ``torch.profiler``: the union of the device intervals in the scan loop,
@@ -68,12 +80,13 @@ import numpy as np
 SEED = 0
 B, SECONDS, N_UTT = 8, 30.0, 19
 K, L = 1024, 32
+T_BENCH = 3000             # frames per utterance of the reference's bench.py
 HBM_BPS = 3.35e12          # H100 SXM device memory, bytes/s
 FP32_FLOPS = 67e12         # fp32 outside the tensor cores
 BF16_FLOPS = 989e12        # bf16 tensor cores, dense
 INT8_OPS = 1979e12         # int8 tensor cores, dense
 STEMS = ("frontend_planes", "select_binspread", "fft_gemm", "banded_dtw", "pair_llr",
-         "fft_binmm_int8", "radix_counts", "binspread")
+         "fft_binmm_int8", "radix_counts", "binspread", "correlation")
 # kernels each scan must launch (launch-count names)
 SCAN_KERNELS = ("frontend_planes", "select_binspread", "fft_block_dft", "fft_binmm",
                 "fft_idft")
@@ -132,6 +145,19 @@ def host_us(torch, fn, loop=100) -> float:
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     return (t1 - t0) / loop * 1e6
+
+
+def time_once(torch, fn):
+    """(result, event ms) of one call: for the full-width plain versions
+    that run once."""
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
 
 
 def device_ms_traced(torch, fn):
@@ -332,7 +358,43 @@ def match_detections(got, want):
     return frac, same / max(matched, 1), diff, float(np.max(np.abs(want.scores)))
 
 
-def small_shape_checks(torch, dev, audio, k1, k2, k3, k4, k5, kp, kd, k8, k9, fp, fs):
+def correlation_bench(torch, kc, flat, wflat, cf, record, say):
+    """Kernel 10 at the reference's bench shape (bench.py: B = 8 maps of
+    T = 3000 frames, K = 1024, L = 32, D = 2048, bf16): the scan's
+    frontend maps cut to T frames (their real sparsity), the random
+    bank's flat LLR filter.  Held against the plain f32 version on the
+    same bf16 operands within 1e-5 x max|score|: both sum the same exact
+    products (binary x bf16) in float32, in different orders.  Returns
+    the bf16 maps [B, T, D]."""
+    b, d = flat.shape[0], flat.shape[2]
+    x = flat[:, :T_BENCH].to(torch.bfloat16).contiguous()
+    w16 = wflat.to(torch.bfloat16).contiguous()
+    k, length = w16.shape[0], w16.shape[1]
+    tv = T_BENCH - length + 1
+    got = kc.correlation_scores(x, w16, cf)
+    want, plain_ms = time_once(torch, lambda: kc.correlation_scores_plain(x, w16, cf))
+    err = float((got - want).abs().max())
+    top = float(want.abs().max())
+    check(bool(torch.isfinite(got).all()), "correlation: scores not finite")
+    check(err <= 1e-5 * top, f"correlation: {err} > 1e-5 * {top}")
+    del got, want
+    xt = x.transpose(1, 2).contiguous()                          # conv1d's [B, D, T]
+    wt = w16.transpose(1, 2).contiguous()                        # [K, D, L]
+    record(
+        kc, err, "1e-5 * max|plain|",
+        time_ms(torch, lambda: kc.correlation_scores(x, w16, cf)),
+        plain_ms,
+        time_ms(torch, lambda: torch.nn.functional.conv1d(xt, wt)),   # bf16 out
+        x.numel() * 2 + w16.numel() * 2 + k * 4 + b * k * tv * 4,
+        2 * b * k * tv * length * d, BF16_FLOPS,
+    )
+    say(f"correlation at the bench shape (B {b}, T {T_BENCH}, K {k}, L {length}, D {d}; "
+        f"{float(x.float().mean()):.4f} of the map set): max|score| {top:.6g}; plain "
+        "timed once")
+    return x
+
+
+def small_shape_checks(torch, dev, audio, k1, k2, k3, k4, k5, kp, kd, k8, k9, kc, fp, fs):
     """Each kernel once at small ragged shapes (the CPU tests' sizes:
     nfft 256 -> F = 128, D = 1024, K = 128, L = 8 -> nfft 39, hop 32;
     the log-mel widths F = 39 and 63, D = 504), against its plain
@@ -460,6 +522,24 @@ def small_shape_checks(torch, dev, audio, k1, k2, k3, k4, k5, kp, kd, k8, k9, fp
         ids = torch.tensor([0, kk - 1, 1, 2, 3, 0, 1], dtype=torch.int32, device=dev) % kk
         close(kp.pair_llr(fmap, wq, rs, ids, mm), kp.pair_llr_plain(fmap, wq, rs, ids, mm),
               1e-5, f"pair_llr (L={length}, m={mm})")
+
+    # direct correlation: T not a multiple of the 128-row tile, K = 3
+    # and 129, D = 40, 504 and 2048, L = 1, 9, 32, 48 and L = T, B = 1,
+    # and an all-zero utterance, whose scores are c exactly
+    for bb, tt, dd, kk, length in ((1, 77, 40, 3, 9), (2, 300, 504, 5, 48),
+                                   (3, 130, 504, 130, 1), (1, 48, 16, 7, 48),
+                                   (2, 257, 2048, 129, 32)):
+        xc = torch.from_numpy(rng.random((bb, tt, dd)) < 0.2).to(dev, torch.bfloat16)
+        if bb > 1:
+            xc[-1] = 0
+        wc = torch.randn(kk, length, dd, device=dev).to(torch.bfloat16)
+        cc = torch.randn(kk, device=dev)
+        got = kc.correlation_scores(xc, wc, cc)
+        close(got, kc.correlation_scores_plain(xc, wc, cc), 1e-5,
+              f"correlation (B={bb}, T={tt}, D={dd}, K={kk}, L={length})")
+        if bb > 1:
+            check(bool(torch.equal(got[-1], cc[:, None].expand(kk, tt - length + 1))),
+                  "correlation: an all-zero utterance does not score c")
 
     # banded DTW: the TPU's packed (L 32), band (L 96) and full (L 128)
     # regimes, and L 48 and 200 (2 and 8 rows a lane); ragged seg_lens
@@ -676,6 +756,8 @@ def main() -> int:
     from template_speech_recognition_tpu_torch import config as C
     from template_speech_recognition_tpu_torch.convert import bank_from_numpy
     from template_speech_recognition_tpu_torch.detect import fft_scorer as fs
+    from template_speech_recognition_tpu_torch.detect import scorer as ts
+    from template_speech_recognition_tpu_torch.detect.nms import top_detections
     from template_speech_recognition_tpu_torch.frontend import planes as fp
     from template_speech_recognition_tpu_torch.ops import _cuda
     from template_speech_recognition_tpu_torch.ops import (
@@ -685,12 +767,17 @@ def main() -> int:
         fft_idft_kernel as k5,
         frontend_kernel as k1,
         binspread_kernel as k9,
+        correlation_kernel as kc,
         pair_llr_kernel as kp,
         radix_kernel as k8,
         selbin_kernel as k2,
     )
     from template_speech_recognition_tpu_torch.ops.dft import dft_matrices
-    from template_speech_recognition_tpu_torch.ops.layout import filters_to_flat
+    from template_speech_recognition_tpu_torch.ops.layout import (
+        filters_to_flat,
+        flat_to_channels,
+    )
+    from template_speech_recognition_tpu_torch.pipeline import detect_corpus
     from template_speech_recognition_tpu_torch.scan import (
         bucket_length,
         detect_corpus_stream,
@@ -880,6 +967,11 @@ def main() -> int:
     del planes, planes_ref, s_k, s_p
     torch.cuda.empty_cache()
 
+    # ---- kernel 10, the direct correlation, at the bench shape ---------
+    xb = correlation_bench(torch, kc, flat.reshape(B, t_pad, d), filters_to_flat(wf), cf,
+                           record, say)
+    torch.cuda.empty_cache()
+
     # ---- the DTW + int8 scan's kernels ---------------------------------
     # int8 bin matmul on the block spectra of kernel 3, quantized as the
     # scorer does; bitwise (exact int32 sums, same f32 flush and bf16
@@ -992,8 +1084,8 @@ def main() -> int:
     mel_kernel_checks(torch, mods, dev, wavs, nvalid, valid, frames2, bank_mel, record, say)
     torch.cuda.empty_cache()
 
-    small_shape_checks(torch, dev, frames2, k1, k2, k3, k4, k5, kp, kd, k8, k9, fp, fs)
-    say("small ragged shapes: all ten kernels agree with their plain versions")
+    small_shape_checks(torch, dev, frames2, k1, k2, k3, k4, k5, kp, kd, k8, k9, kc, fp, fs)
+    say("small ragged shapes: all eleven kernels agree with their plain versions")
 
     # ---- the scan at full width ---------------------------------------
     scan_cfg = C.PipelineConfig(detect=C.DetectConfig(batch_size=B))
@@ -1039,6 +1131,7 @@ def main() -> int:
         f"{frac:.4f} matched peaks, {id_frac:.4f} same template on matched")
     check(frac >= 0.99, f"matched peaks {frac} < 0.99")
     check(id_frac >= 0.99, f"template ids agree on {id_frac} < 0.99 of matched")
+    fft_dets = dk
     del res, ref
 
     # ---- the DTW + int8 scan at full width (configs 4 and 5) -----------
@@ -1155,6 +1248,111 @@ def main() -> int:
         check(id_frac >= 0.99, f"{label}: template ids agree on {id_frac} < 0.99")
         check(diff <= 4e-3 * top, f"{label}: scores differ by {diff} > 4e-3 * {top}")
         del res, ref
+
+    # ---- the backend-selectable scorer: the correlation kernel's path ---
+    # one utterance a call, in the reference's [T', F, E] / [K, L, F, E]
+    # signature, on the 8 bench-shape maps
+    maps = [flat_to_channels(xb[i], fcfg.feature_freqs) for i in range(B)]
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    api = [ts.sliding_scores_backend(mp, wf, cf, backend="pallas") for mp in maps]
+    torch.cuda.synchronize()
+    api_s = time.perf_counter() - t0
+    counts = _cuda.launch_counts()
+    check(counts.get("correlation", 0) == B, f"pallas backend: launches {counts}")
+    check(counts.get("fft_binmm", 0) == 0, "the pallas backend launched the FFT bin matmul")
+    take_launches(rows, ("correlation",), counts)
+    via_fft = [ts.sliding_scores_backend(mp, wf, cf, backend="fft") for mp in maps]
+    err_api = max(float((a - r).abs().max()) for a, r in zip(api, via_fft))
+    top_api = max(float(r.abs().max()) for r in via_fft)
+    say(f"sliding_scores_backend(pallas): {B} utterances of {T_BENCH} frames in {api_s:.4f} s "
+        f"(host clock), launches {counts}; vs backend fft: max diff {err_api:.6g} = "
+        f"{err_api / top_api:.3g} of max|score| {top_api:.6g} (tolerance 4e-3)")
+    check(all(a.shape == (K, T_BENCH - L + 1) for a in api), "pallas backend: shape")
+    check(err_api <= 4e-3 * top_api, f"pallas vs fft backend: {err_api} > 4e-3 * {top_api}")
+    del api, via_fft, maps, xb
+
+    # ---- the streaming scan on the f32 conv (score_backend="conv") -----
+    conv_cfg = C.PipelineConfig(detect=C.DetectConfig(batch_size=B, score_backend="conv"))
+    detect_corpus_stream(corpus.head(B), bank, conv_cfg, target_phone="aa")   # warm-up
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    res = detect_corpus_stream(corpus, bank, conv_cfg, target_phone="aa")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _cuda.launch_counts()
+    for name in ("frontend_planes", "select_binspread"):
+        check(counts.get(name, 0) > 0, f"{name} was not launched by the conv scan")
+    for name in ("fft_block_dft", "fft_binmm", "fft_idft", "correlation"):
+        check(counts.get(name, 0) == 0, f"the conv scan launched {name}")
+    ctr = res.counters
+    stages = " ".join(
+        f"{s_} {ctr.get(f'device_ms_{s_}', 0.0) / ctr['batches']:.3f} ms"
+        for s_ in ("frontend", "score", "nms")
+    )
+    dk = res.detections
+    check(len(dk.scores) > 0 and bool(np.isfinite(dk.scores).all()), "no conv detections")
+    frac, id_frac, diff, top = match_detections(dk, fft_dets)
+    say(f"conv scan: {ctr['utterances']:.0f} utterances, {ctr['audio_seconds']:.1f} audio-s, "
+        f"{ctr['audio_s_per_s']:.1f} audio-s/s (scan loop {ctr['time_scan_s']:.4f} s; with the "
+        f"bank build {wall:.4f} s); mean device time per batch ({ctr['batches']:.0f} "
+        f"batches): {stages} (CUDA events); launches {counts}; vs the fft scan: "
+        f"{len(dk.scores)} vs {len(fft_dets.scores)} detections, {frac:.4f} matched peaks, "
+        f"{id_frac:.4f} same template, score max diff {diff:.6g} = {diff / top:.3g} of "
+        f"max|score|")
+    check(frac >= 0.99, f"conv scan: matched peaks {frac} < 0.99")
+    check(id_frac >= 0.99, f"conv scan: template ids agree on {id_frac} < 0.99")
+    del res
+
+    # ---- exact int32 scores through pipeline.detect_corpus, one batch --
+    ex_cfg = C.PipelineConfig(detect=C.DetectConfig(exact_scores=True))
+    head = corpus.head(B)
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    res = detect_corpus(head, bank, ex_cfg, target_phone="aa")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _cuda.launch_counts()
+    for name in ("frontend_planes", "select_binspread"):
+        check(counts.get(name, 0) == B, f"exact loop: {name} launched {counts.get(name, 0)}x")
+    dk = res.detections
+    check(len(dk.scores) > 0 and bool(np.isfinite(dk.scores).all()), "no exact detections")
+    # utterance 0 again, as the loop scores it: int32 on the card and on
+    # the CPU, bitwise; its detections are NMS of those scores
+    _u, wav0, _p = head.utts[0]
+    pad0 = bucket_length(len(wav0))
+    buf = torch.zeros((1, pad0), dtype=torch.float32)
+    buf[0, : len(wav0)] = torch.from_numpy(wav0)
+    fm0 = fp.frontend_batch_flat(buf.to(dev), torch.tensor([len(wav0)], dtype=torch.int32,
+                                                           device=dev), fcfg)
+    fmap0 = fm0.binary[0, : fcfg.num_feature_frames(pad0)]
+    scale = ex_cfg.detect.quant_scale
+    w_int, c_int = bank.llr_quantized(scale)
+    w_int = filters_to_flat(w_int).contiguous()
+    si_gpu = ts.sliding_scores_int(fmap0, w_int, c_int).cpu()
+    t1 = time.perf_counter()
+    si_cpu = ts.sliding_scores_int(fmap0.cpu(), w_int.cpu(), c_int.cpu())
+    cpu_s = time.perf_counter() - t1
+    n_diff = int((si_gpu != si_cpu).sum())
+    check(n_diff == 0, f"exact: {n_diff} int32 scores differ between the card and the CPU")
+    sc0 = ts.masked_scores(si_cpu.to(torch.float32) / float(scale),
+                           fm0.valid_frames[0].cpu(), L)
+    s0, t0_, k0 = top_detections(sc0, ex_cfg.detect.nms_radius,
+                                 ex_cfg.detect.effective_top_k(pad0, corpus.sample_rate))
+    keep = torch.isfinite(s0)
+    sel = dk.utterance_ids == 0
+    check(np.array_equal(dk.times[sel], t0_[keep].numpy())
+          and np.array_equal(dk.template_ids[sel], k0[keep].numpy())
+          and np.array_equal(np.asarray(dk.scores[sel], np.float32), s0[keep].numpy()),
+          "exact: utterance 0's detections are not NMS of its int32 scores")
+    say(f"exact detect_corpus ({B} utterances, per-utterance loop): {wall:.3f} s, "
+        f"{res.counters['audio_s_per_s']:.1f} audio-s/s, {len(dk.scores)} detections, "
+        f"launches {counts}; utterance 0: {si_cpu.numel()} int32 scores bitwise equal on "
+        f"the card and on the CPU ({cpu_s:.2f} s there), its {int(sel.sum())} detections "
+        f"equal to NMS of them")
+    del res, si_gpu, si_cpu, w_int
 
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -1,20 +1,25 @@
-"""CLI of the port: the ``detect`` subcommand.
+"""CLI of the port: the ``detect`` and ``evaluate`` subcommands.
 
     python -m template_speech_recognition_tpu_torch detect \\
         --corpus synthetic --bank bank.npz --phone aa --out dets.npz
+    python -m template_speech_recognition_tpu_torch evaluate \\
+        --corpus synthetic --bank bank.npz --phone aa --artifacts out/
 
 ``--bank`` is the ``.npz`` that ``TemplateBank.save`` writes.  The flags
-and the one JSON line printed match the reference's ``detect``,
-including ``--dtw-rescore`` (config 4), ``--dtw-top-r`` and
-``--int8-spectra``; ``--exact``, ``--score-backend`` and ``--manifest``
-are not ported yet, and the other subcommands are later work
-(ROADMAP.md Queue 1, item 10).
+and the one JSON line printed match the reference's ``detect`` and
+``evaluate``: ``--dtw-rescore`` (config 4), ``--dtw-top-r``,
+``--int8-spectra``, ``--exact`` (int32 scores), ``--score-backend`` and
+``evaluate``'s ``--artifacts`` (``roc.npz``, ``detections.npz``,
+``metrics.json``).  ``--manifest`` and ``--tensorboard`` are not ported
+yet and raise; the other subcommands are later work (ROADMAP.md Queue 1,
+items 9-10).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 
 import numpy as np
 
@@ -46,30 +51,44 @@ def _load_config(args):
         cfg = C.PipelineConfig()
     if args.dtw_rescore:
         cfg = C.override(cfg, detect=C.override(cfg.detect, dtw_rescore=True))
-    if args.dtw_top_r is not None:
+    if getattr(args, "dtw_top_r", None) is not None:
         cfg = C.override(cfg, dtw=C.override(cfg.dtw, top_r=args.dtw_top_r))
-    if args.int8_spectra:
+    if args.exact:
+        cfg = C.override(cfg, detect=C.override(cfg.detect, exact_scores=True))
+    if args.score_backend:
+        cfg = C.override(cfg, detect=C.override(cfg.detect,
+                                                score_backend=args.score_backend))
+    if getattr(args, "int8_spectra", False):
         cfg = C.override(cfg, detect=C.override(cfg.detect, int8_spectra=True))
     return cfg
 
 
-def cmd_detect(args) -> int:
+def _scan(args):
+    """The corpus scan both subcommands run -> (config, result)."""
     from template_speech_recognition_tpu_torch.models.bank import TemplateBank
-    from template_speech_recognition_tpu_torch.scan import detect_corpus_stream
+    from template_speech_recognition_tpu_torch.pipeline import detect_corpus
 
+    if args.manifest:
+        raise NotImplementedError(
+            "--manifest: scan resume is not ported yet (ROADMAP.md Queue 1, "
+            "item 6, 'manifest resume')"
+        )
     cfg = _load_config(args)
     corpus = _build_corpus(args.corpus, args.seed)
     bank = TemplateBank.load(args.bank, device=args.device)
-    result = detect_corpus_stream(corpus, bank, cfg, target_phone=args.phone)
+    return cfg, detect_corpus(corpus, bank, cfg, target_phone=args.phone)
+
+
+def _save_detections(path: str, d) -> None:
+    np.savez(path, scores=d.scores, times=d.times, template_ids=d.template_ids,
+             utterance_ids=d.utterance_ids)
+
+
+def cmd_detect(args) -> int:
+    _cfg, result = _scan(args)
     d = result.detections
     if args.out:
-        np.savez(
-            args.out,
-            scores=d.scores,
-            times=d.times,
-            template_ids=d.template_ids,
-            utterance_ids=d.utterance_ids,
-        )
+        _save_detections(args.out, d)
     print(
         json.dumps(
             {
@@ -83,27 +102,84 @@ def cmd_detect(args) -> int:
     return 0
 
 
+def cmd_evaluate(args) -> int:
+    from template_speech_recognition_tpu_torch.pipeline import evaluate_detections
+
+    if args.tensorboard:
+        raise NotImplementedError(
+            "--tensorboard: TensorBoard scalars are not ported yet (ROADMAP.md "
+            "Queue 1, item 12)"
+        )
+    cfg, result = _scan(args)
+    metrics = evaluate_detections(result, cfg.detect.match_tolerance)
+    summary = {
+        "phone": args.phone,
+        "eer": round(float(metrics["eer"]), 4),
+        "best_tpr": round(float(metrics["best_tpr"]), 4),
+        "num_labels": int(metrics["num_labels"]),
+        "num_detections": int(metrics["num_detections"]),
+    }
+    if args.artifacts:
+        # the ROC curve arrays, the detections, and the summary with the
+        # scan's counters
+        os.makedirs(args.artifacts, exist_ok=True)
+        np.savez(
+            os.path.join(args.artifacts, "roc.npz"),
+            thresholds=metrics["thresholds"],
+            tpr=metrics["tpr"],
+            fp_per_sec=metrics["fp_per_sec"],
+            eer=np.float64(metrics["eer"]),
+        )
+        _save_detections(os.path.join(args.artifacts, "detections.npz"),
+                         result.detections)
+        with open(os.path.join(args.artifacts, "metrics.json"), "w") as f:
+            json.dump({**summary, "counters": result.counters}, f, indent=2)
+        summary["artifacts"] = args.artifacts
+    print(json.dumps(summary))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="template_speech_recognition_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
+
+    def common(sp):
+        sp.add_argument("--corpus", default="synthetic", help="synthetic")
+        sp.add_argument("--config", default=None, help="JSON PipelineConfig")
+        sp.add_argument("--seed", type=int, default=0)
+        sp.add_argument("--bank", required=True, help="bank .npz")
+        sp.add_argument("--phone", required=True, help="target phone for labels")
+        sp.add_argument("--dtw-rescore", action="store_true",
+                        help="config 4: DTW-rescore the top-K peaks")
+        sp.add_argument("--exact", action="store_true",
+                        help="int32 fixed-point scoring (bit-parity path)")
+        sp.add_argument("--score-backend", default=None,
+                        choices=["conv", "fft", "pallas"],
+                        help="scoring kernel (fft = frequency-domain fast path)")
+        sp.add_argument("--manifest", default=None,
+                        help="scan-manifest directory (not ported yet)")
+        sp.add_argument("--device", default=None,
+                        help="cuda (default; raises without a GPU) or cpu")
+
     d = sub.add_parser("detect", help="scan a corpus (configs 1-2, 4)")
-    d.add_argument("--corpus", default="synthetic", help="synthetic")
-    d.add_argument("--config", default=None, help="JSON PipelineConfig")
-    d.add_argument("--seed", type=int, default=0)
-    d.add_argument("--bank", required=True, help="bank .npz")
-    d.add_argument("--phone", required=True, help="target phone for labels")
+    common(d)
     d.add_argument("--out", default=None, help="detections .npz path")
     d.add_argument("--dtw-top-r", type=int, default=None,
                    help="DTW rescore scope: 0 exhaustive, 1 verify-the-winner "
                         "(the config default; constant in bank size)")
-    d.add_argument("--dtw-rescore", action="store_true",
-                   help="config 4: DTW-rescore the top-K peaks")
     d.add_argument("--int8-spectra", action="store_true",
                    help="int8-quantized template spectra (config-5 bank "
                         "scale; half the W2 stream)")
-    d.add_argument("--device", default=None,
-                   help="cuda (default; raises without a GPU) or cpu")
     d.set_defaults(fn=cmd_detect)
+
+    e = sub.add_parser("evaluate", help="ROC / EER over a corpus scan")
+    common(e)
+    e.add_argument("--artifacts", default=None,
+                   help="directory for roc.npz / detections.npz / "
+                        "metrics.json artifacts")
+    e.add_argument("--tensorboard", default=None,
+                   help="directory for tensorboard scalars (not ported yet)")
+    e.set_defaults(fn=cmd_evaluate)
     return p
 
 

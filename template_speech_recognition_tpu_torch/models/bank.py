@@ -49,6 +49,14 @@ class TemplateBank:
         c_rows = torch.sum(torch.log1p(-p) - torch.log1p(-q), dim=(2, 3))
         return w, c_rows
 
+    def llr_quantized(self, scale: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Fixed-point (W [K, L, F, E] int32, c [K] int32) for the exact
+        path: ``round(x * scale)``, half to even as the reference's
+        ``jnp.round``."""
+        w, c = self.llr()
+        return (torch.round(w * scale).to(torch.int32),
+                torch.round(c * scale).to(torch.int32))
+
     @classmethod
     def load(cls, path: str, device=None) -> "TemplateBank":
         """Read a bank ``.npz`` (``templates``, ``background``, JSON

@@ -5,8 +5,9 @@ Counterpart of ``template_speech_recognition_tpu.scan``
 
 * utterances group into sample-length buckets (``bucket_length``);
 * each full bucket batch runs one ``scan_step`` on the device:
-  ``frontend_batch_flat -> fft_sliding_scores -> masked_scores ->
-  batched NMS/top-K [-> batched DTW rescore]`` with no host sync
+  ``frontend_batch_flat -> fft_sliding_scores (or, with
+  score_backend="conv", the f32 sliding_scores_batch) -> masked_scores
+  -> batched NMS/top-K [-> batched DTW rescore]`` with no host sync
   inside; ``int8_spectra`` runs the scorer on int8 template spectra;
 * tail batches shrink to the next power of two that holds their rows;
 * a window of ``DEPTH`` dispatched batches stays in flight: each
@@ -14,8 +15,10 @@ Counterpart of ``template_speech_recognition_tpu.scan``
   (s, t, k) triple comes back through ONE ``non_blocking`` copy into
   pinned host memory, read only when the window is full.
 
-Options of the reference that are not ported yet (the conv and Pallas
-scorers, exact scores, manifest resume, PCM16 upload, per-process
+As in the reference, the Pallas scorer and exact scores are not
+options of the stream (``pipeline.detect_corpus`` routes them to its
+per-utterance loop) and raise ``ValueError``.  Options of the reference
+that are not ported yet (manifest resume, PCM16 upload, per-process
 feeding) raise ``NotImplementedError`` naming their ROADMAP item; none
 is ignored.
 """
@@ -37,11 +40,15 @@ from template_speech_recognition_tpu_torch.align.dtw import (
 from template_speech_recognition_tpu_torch.config import PipelineConfig
 from template_speech_recognition_tpu_torch.detect import evaluate as ev
 from template_speech_recognition_tpu_torch.detect.fft_scorer import (
+    FFTBank,
     build_fft_bank,
     fft_sliding_scores,
 )
 from template_speech_recognition_tpu_torch.detect.nms import top_detections
-from template_speech_recognition_tpu_torch.detect.scorer import masked_scores
+from template_speech_recognition_tpu_torch.detect.scorer import (
+    masked_scores,
+    sliding_scores_batch,
+)
 from template_speech_recognition_tpu_torch.frontend import frontend_batch_flat
 from template_speech_recognition_tpu_torch.models.bank import TemplateBank
 from template_speech_recognition_tpu_torch.ops.layout import filters_to_flat
@@ -133,7 +140,7 @@ def dtw_rescore_batched(binary, valid_frames, scores, times, ids,
 def scan_step(
     wavs: torch.Tensor,            # [B, S] padded waveforms
     valid_samples: torch.Tensor,   # [B] int32
-    fft_bank,
+    scorer,                        # FFTBank, or (W [K, L, D], c [K]) for conv
     *,
     fcfg,
     template_length: int,
@@ -146,7 +153,9 @@ def scan_step(
     """One scan step: waveforms -> fixed-size detections, no host sync.
     Padded batch rows (valid_samples == 0) come out as all -inf.
 
-    ``dtw``: rescore the peaks (config 4).  ``plain=True`` runs every
+    ``scorer``: an ``FFTBank`` runs the FFT scorer; a flat LLR filter
+    ``(W, c)`` runs the f32 conv (``score_backend="conv"``).  ``dtw``:
+    rescore the peaks (config 4).  ``plain=True`` runs every
     kernel's plain PyTorch version.  ``marks`` (CUDA only): a list that
     receives a recorded CUDA event after each stage, for device-time
     accounting."""
@@ -159,13 +168,17 @@ def scan_step(
     mark("start")
     fm = frontend_batch_flat(wavs, valid_samples, fcfg, plain=plain)
     mark("frontend")
-    # time-major + trim=False: the iDFT kernel's native layout flows
-    # straight into masking/NMS (no transpose, no tail slice)
-    scores = fft_sliding_scores(fm.binary, fft_bank, time_major=True,
-                                trim=False, plain=plain)
+    time_major = isinstance(scorer, FFTBank)
+    if time_major:
+        # time-major + trim=False: the iDFT kernel's native layout flows
+        # straight into masking/NMS (no transpose, no tail slice)
+        scores = fft_sliding_scores(fm.binary, scorer, time_major=True,
+                                    trim=False, plain=plain)
+    else:
+        scores = sliding_scores_batch(fm.binary, *scorer)        # [B, K, T'']
     mark("score")
     s, t, k = batched_top_detections(scores, fm.valid_frames, template_length,
-                                     nms_radius, top_k, time_major=True)
+                                     nms_radius, top_k, time_major=time_major)
     mark("nms")
     if dtw is not None:
         s, k = dtw_rescore_batched(
@@ -176,17 +189,14 @@ def scan_step(
     return s, t, k
 
 
-def _reject_unported(cfg: PipelineConfig, manifest) -> None:
+def _check_options(cfg: PipelineConfig, manifest) -> None:
     dcfg = cfg.detect
-    if dcfg.score_backend != "fft":
-        raise NotImplementedError(
-            f"score_backend={dcfg.score_backend!r}: only the fft scorer is "
-            "ported (ROADMAP.md Queue 1, item 8)"
-        )
+    if dcfg.score_backend not in ("fft", "conv"):
+        raise ValueError(f"streaming scan supports fft|conv, got {dcfg.score_backend!r}")
     if dcfg.exact_scores:
-        raise NotImplementedError(
-            "exact_scores: the int32 scorer is not ported yet (ROADMAP.md "
-            "Queue 1, item 8)"
+        raise ValueError(
+            "exact_scores: the streaming scan has no int32 path; "
+            "pipeline.detect_corpus runs it in its per-utterance loop"
         )
     if manifest is not None:
         raise NotImplementedError(
@@ -208,12 +218,15 @@ def detect_corpus_stream(
 
     ``plain=True`` runs the kernels' plain versions (the reference the
     kernels are held against)."""
-    _reject_unported(cfg, manifest)
+    _check_options(cfg, manifest)
     fcfg, dcfg = cfg.frontend, cfg.detect
     dev = bank.device
     wf, cf = bank.llr()
-    fft_bank = build_fft_bank(filters_to_flat(wf), cf,
-                              mm_dtype=torch.int8 if dcfg.int8_spectra else None)
+    if dcfg.score_backend == "fft":
+        scorer = build_fft_bank(filters_to_flat(wf), cf,
+                                mm_dtype=torch.int8 if dcfg.int8_spectra else None)
+    else:
+        scorer = (filters_to_flat(wf), cf)
     dtw = None
     if dcfg.dtw_rescore:
         w_rows, c_rows = bank.llr_rows()
@@ -226,7 +239,7 @@ def detect_corpus_stream(
 
     def compute(wavs, vs, marks):
         return scan_step(
-            wavs, vs, fft_bank,
+            wavs, vs, scorer,
             fcfg=fcfg, template_length=bank.template_length,
             nms_radius=dcfg.nms_radius,
             top_k=dcfg.effective_top_k(wavs.shape[1], fcfg.sample_rate),

@@ -1,0 +1,270 @@
+"""The port's ``pipeline.py`` (the ``detect_corpus`` router, the
+per-utterance loop: exact int32, conv and pallas; ``evaluate_detections``)
+and the CLI's ``--exact``, ``--score-backend`` and ``evaluate`` against
+the JAX reference and the NumPy oracle, on the CPU."""
+
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import oracle as O
+from oracle.detect import bank_nms
+from oracle.frontend import FrontendParams
+from template_speech_recognition_tpu import config as JC
+from template_speech_recognition_tpu import pipeline as jpipe
+from template_speech_recognition_tpu.pipeline import SyntheticAdapter, train_bank
+from template_speech_recognition_tpu_torch import config as TC
+from template_speech_recognition_tpu_torch import pipeline as tpipe
+from template_speech_recognition_tpu_torch.convert import bank_from_numpy
+from template_speech_recognition_tpu_torch.corpus import SyntheticAdapter as TAdapter
+from template_speech_recognition_tpu_torch.detect import evaluate as tev
+from template_speech_recognition_tpu_torch.scan import CorpusDetections, bucket_length
+
+
+@pytest.fixture(scope="module")
+def synth():
+    return O.make_synthetic_corpus(num_utterances=5, phones_per_utterance=5, seed=3)
+
+
+@pytest.fixture(scope="module")
+def jbank4(synth):
+    """Two classes x two mixture components: K = 4 templates."""
+    cfg = JC.PipelineConfig(template=JC.TemplateConfig(num_components=2))
+    return train_bank(SyntheticAdapter(synth), ["aa", "iy"], cfg)
+
+
+@pytest.fixture(scope="module")
+def tbank4(jbank4):
+    return bank_from_numpy(np.asarray(jbank4.templates), np.asarray(jbank4.background),
+                           jbank4.labels, device="cpu")
+
+
+def _per_utt(result):
+    d = result.detections
+    out = []
+    for ui in range(len(result.utt_ids)):
+        sel = d.utterance_ids == ui
+        order = np.lexsort((d.template_ids[sel], d.times[sel]))
+        out.append((d.scores[sel][order], d.times[sel][order],
+                    d.template_ids[sel][order]))
+    return out
+
+
+def _assert_same(got, want, exact):
+    """Identical detections (utterance, time, template); scores bitwise
+    on the exact path, else at rtol 1e-5 (f32 summation order)."""
+    assert got.utt_ids == want.utt_ids
+    assert len(got.detections.scores) == len(want.detections.scores) > 0
+    for (sg, tg, kg), (sw, tw, kw) in zip(_per_utt(got), _per_utt(want)):
+        np.testing.assert_array_equal(tg, tw)
+        np.testing.assert_array_equal(kg, kw)
+        if exact:
+            np.testing.assert_array_equal(sg.astype(np.float32), sw.astype(np.float32))
+        else:
+            np.testing.assert_allclose(sg, sw, rtol=1e-5, atol=1e-6)
+    for lg, lw in zip(got.labels_per_utterance, want.labels_per_utterance):
+        np.testing.assert_array_equal(lg, lw)
+    assert got.audio_seconds == pytest.approx(want.audio_seconds)
+    for key in ("utterances", "frames", "windows_scored", "detections"):
+        assert got.counters[key] == want.counters[key]
+
+
+@pytest.mark.parametrize("detect_kw", [
+    {"score_backend": "pallas"},
+    {"exact_scores": True},
+    {"exact_scores": True, "dtw_rescore": True},
+    {"score_backend": "pallas", "dtw_rescore": True},
+], ids=["pallas", "exact", "exact-dtw", "pallas-dtw"])
+def test_detect_corpus_loop_matches_reference(synth, jbank4, tbank4, detect_kw):
+    """The routes the reference sends through its per-utterance loop:
+    ``pallas`` (scored by the f32 conv, as in the reference) and exact
+    int32 scores, with and without DTW rescoring (verify-the-winner)."""
+    jcfg = JC.PipelineConfig(detect=JC.DetectConfig(**detect_kw))
+    tcfg = TC.PipelineConfig(detect=TC.DetectConfig(**detect_kw))
+    want = jpipe.detect_corpus(SyntheticAdapter(synth), jbank4, jcfg, "aa")
+    got = tpipe.detect_corpus(TAdapter(synth), tbank4, tcfg, "aa")
+    exact = detect_kw.get("exact_scores", False) and not detect_kw.get("dtw_rescore")
+    _assert_same(got, want, exact)
+
+
+def test_loop_fft_branch_matches_reference(synth, jbank4, tbank4):
+    """The loop's per-utterance FFT branch (which the router reaches
+    only through ``_detect_corpus_loop`` itself, in both packages)."""
+    want = jpipe._detect_corpus_loop(SyntheticAdapter(synth), jbank4,
+                                     JC.PipelineConfig(), "aa")
+    got = tpipe._detect_corpus_loop(TAdapter(synth), tbank4, TC.PipelineConfig(), "aa")
+    _assert_same(got, want, exact=False)
+
+
+@pytest.mark.parametrize("backend", ["fft", "conv"])
+def test_detect_corpus_routes_batchable_to_stream(synth, tbank4, backend):
+    """``fft`` and ``conv`` go through the streaming scan (its
+    ``batches`` counter), the loop's results with them up to f32
+    summation order; a manifest raises, as the stream's does."""
+    cfg = TC.PipelineConfig(detect=TC.DetectConfig(score_backend=backend, batch_size=2))
+    got = tpipe.detect_corpus(TAdapter(synth), tbank4, cfg, "aa")
+    assert got.counters["batches"] == 3
+    loop = tpipe._detect_corpus_loop(TAdapter(synth), tbank4, cfg, "aa")
+    for (sg, tg, kg), (sw, tw, kw) in zip(_per_utt(got), _per_utt(loop)):
+        np.testing.assert_array_equal(tg, tw)
+        np.testing.assert_array_equal(kg, kw)
+        np.testing.assert_allclose(sg, sw, rtol=1e-5, atol=1e-6)
+    with pytest.raises(NotImplementedError, match="manifest"):
+        tpipe.detect_corpus(TAdapter(synth), tbank4, cfg, "aa", manifest=object())
+
+
+def test_evaluate_detections_matches_reference(synth, jbank4, tbank4):
+    """ROC / EER of one scan through both packages' evaluation, with and
+    without a template mask: identical arrays."""
+    cfg = TC.PipelineConfig(detect=TC.DetectConfig(exact_scores=True))
+    res = tpipe.detect_corpus(TAdapter(synth), tbank4, cfg, "aa")
+    jres = jpipe.CorpusDetections(res.detections, res.labels_per_utterance,
+                                  res.audio_seconds, res.utt_ids, res.counters)
+    mask = np.asarray([lbl == "aa" for lbl in tbank4.labels])
+    for tm in (None, mask):
+        got = tpipe.evaluate_detections(res, 10, template_mask=tm)
+        want = jpipe.evaluate_detections(jres, 10, template_mask=tm)
+        assert set(got) == set(want)
+        for key in want:
+            np.testing.assert_array_equal(np.asarray(got[key]), np.asarray(want[key]))
+
+
+def _write_bank(tmp_path, jbank):
+    path = str(tmp_path / "bank.npz")
+    jbank.save(path)
+    return path
+
+
+@pytest.mark.parametrize("flags", [["--exact"], ["--score-backend", "pallas"],
+                                   ["--score-backend", "conv", "--dtw-rescore"]],
+                         ids=["exact", "pallas", "conv-dtw"])
+def test_cli_detect_exact_and_backends(tmp_path, capsys, jbank4, flags):
+    from template_speech_recognition_tpu_torch.cli import main
+
+    out = str(tmp_path / "dets.npz")
+    assert main(["detect", "--bank", _write_bank(tmp_path, jbank4), "--phone", "aa",
+                 "--device", "cpu", "--out", out, *flags]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(line) == {"num_detections", "audio_seconds", "audio_s_per_s", "out"}
+    z = np.load(out)
+    assert len(z["scores"]) == line["num_detections"] > 0
+    assert np.all(np.isfinite(z["scores"]))
+    if flags == ["--exact"]:
+        # int32 scores over quant_scale 256: multiples of 1/256
+        np.testing.assert_array_equal(z["scores"] * 256, np.round(z["scores"] * 256))
+
+
+def test_cli_evaluate_artifacts(tmp_path, capsys, jbank4):
+    """``evaluate --exact --artifacts``: the reference's JSON line and
+    its three artifacts, the ROC arrays equal to ``evaluate_detections``
+    on the same scan."""
+    from template_speech_recognition_tpu_torch.cli import main
+
+    bank_path = _write_bank(tmp_path, jbank4)
+    art = str(tmp_path / "art")
+    assert main(["evaluate", "--bank", bank_path, "--phone", "aa", "--exact",
+                 "--device", "cpu", "--artifacts", art]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(line) == {"phone", "eer", "best_tpr", "num_labels", "num_detections",
+                         "artifacts"}
+    assert sorted(os.listdir(art)) == ["detections.npz", "metrics.json", "roc.npz"]
+    roc = np.load(os.path.join(art, "roc.npz"))
+    dets = np.load(os.path.join(art, "detections.npz"))
+    with open(os.path.join(art, "metrics.json")) as f:
+        saved = json.load(f)
+    assert saved["num_detections"] == line["num_detections"] == len(dets["scores"])
+    assert saved["counters"]["utterances"] == 6
+    corpus = TAdapter(O.make_synthetic_corpus(num_utterances=6, phones_per_utterance=5,
+                                              seed=0))
+    from template_speech_recognition_tpu_torch.models.bank import TemplateBank
+
+    cfg = TC.PipelineConfig(detect=TC.DetectConfig(exact_scores=True))
+    res = tpipe.detect_corpus(corpus, TemplateBank.load(bank_path, device="cpu"), cfg,
+                              "aa")
+    m = tpipe.evaluate_detections(res, cfg.detect.match_tolerance)
+    for key in ("thresholds", "tpr", "fp_per_sec"):
+        np.testing.assert_array_equal(roc[key], m[key])
+    assert float(roc["eer"]) == pytest.approx(line["eer"], abs=5e-5)
+
+
+@pytest.mark.parametrize("argv", [
+    ["detect", "--manifest", "m"], ["evaluate", "--manifest", "m"],
+    ["evaluate", "--tensorboard", "tb"],
+])
+def test_cli_unported_flags_raise(tmp_path, jbank4, argv):
+    from template_speech_recognition_tpu_torch.cli import main
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        main([argv[0], "--bank", _write_bank(tmp_path, jbank4), "--phone", "aa",
+              "--device", "cpu", *argv[1:]])
+
+
+# ---- the port twin of tests/test_roc_equality.py -----------------------
+
+@pytest.fixture(scope="module")
+def roc_corpus():
+    return O.make_synthetic_corpus(num_utterances=6, phones_per_utterance=6, seed=11)
+
+
+def _oracle_detect_corpus(corpus, bank, cfg, target_phone):
+    """The NumPy oracle pipeline on the exact path (oracle frontend,
+    int32 bank scoring, NMS/top-K with the same per-bucket budget), on
+    the port bank's own ``llr_quantized``."""
+    p = FrontendParams()
+    fcfg = cfg.frontend
+    w_int, c_int = (x.numpy() for x in bank.llr_quantized(cfg.detect.quant_scale))
+    scale = np.float32(cfg.detect.quant_scale)
+    per_utt, labels, total = [], [], 0
+    for _uid, wav, phones in corpus.iter_utterances():
+        total += len(wav)
+        si = O.sliding_score_int(O.frontend(wav, p), w_int, c_int)
+        top_k = cfg.detect.effective_top_k(bucket_length(len(wav)), fcfg.sample_rate)
+        times, s_int, tids = bank_nms(si, cfg.detect.nms_radius, max_peaks=top_k)
+        per_utt.append((s_int.astype(np.float32) / scale, times, tids))
+        labels.append(np.asarray(
+            [s0 // fcfg.hop_length for (ph, s0, _e) in phones if ph == target_phone],
+            dtype=np.int64))
+    return CorpusDetections(tev.DetectionSet.from_per_utterance(per_utt), labels,
+                            total / corpus.sample_rate, list(range(len(per_utt))), {})
+
+
+def test_int32_roc_equality_end_to_end(roc_corpus):
+    """A bank trained by the reference (fixture seed 11), carried across:
+    the port's ``detect_corpus(exact_scores=True)`` and the oracle
+    pipeline give identical detections and bitwise-equal ROC arrays."""
+    jcfg = JC.PipelineConfig(detect=JC.DetectConfig(exact_scores=True))
+    jbank = train_bank(SyntheticAdapter(roc_corpus), ["aa"], jcfg)
+    bank = bank_from_numpy(np.asarray(jbank.templates), np.asarray(jbank.background),
+                           jbank.labels, device="cpu")
+    cfg = TC.PipelineConfig(detect=TC.DetectConfig(exact_scores=True))
+    port = tpipe.detect_corpus(TAdapter(roc_corpus), bank, cfg, target_phone="aa")
+    orc = _oracle_detect_corpus(TAdapter(roc_corpus), bank, cfg, "aa")
+    for field in ("utterance_ids", "times", "template_ids"):
+        np.testing.assert_array_equal(getattr(port.detections, field),
+                                      getattr(orc.detections, field))
+    np.testing.assert_array_equal(np.asarray(port.detections.scores, np.float32),
+                                  np.asarray(orc.detections.scores, np.float32))
+    m = tpipe.evaluate_detections(port, cfg.detect.match_tolerance)
+    is_tp = np.concatenate([
+        O.match_detections(
+            orc.detections.times[orc.detections.utterance_ids == u],
+            orc.detections.scores[orc.detections.utterance_ids == u],
+            orc.labels_per_utterance[u], cfg.detect.match_tolerance)
+        for u in range(len(orc.labels_per_utterance))
+    ])
+    num_labels = int(sum(len(lb) for lb in orc.labels_per_utterance))
+    thr, tpr, fps = O.roc_curve(orc.detections.scores, is_tp, num_labels,
+                                orc.audio_seconds)
+    np.testing.assert_array_equal(m["thresholds"], thr)
+    np.testing.assert_array_equal(m["tpr"], tpr)
+    np.testing.assert_array_equal(m["fp_per_sec"], fps)
+    assert m["num_labels"] == num_labels
+    assert m["best_tpr"] >= 0.9, m
+    assert m["eer"] <= 0.15, m
+    assert torch.equal(bank.llr_quantized(256)[0],
+                       torch.from_numpy(np.array(jbank.llr_quantized(256)[0])))

@@ -125,10 +125,30 @@ def test_scan_feature_maps_match_reference(synth):
 @pytest.mark.parametrize("detect_kw", [
     {"score_backend": "pallas"}, {"score_backend": "conv"}, {"exact_scores": True},
 ])
-def test_unported_options_raise(synth, tbank, detect_kw):
-    cfg = TC.PipelineConfig(detect=TC.DetectConfig(**detect_kw))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tscan.detect_corpus_stream(TAdapter(synth), tbank, cfg, "aa")
+def test_unported_options_raise(synth, jbank, tbank, detect_kw):
+    """The stream's options as the reference has them: ``pallas`` raises
+    the reference's ``ValueError``, exact scores a ``ValueError`` that
+    names ``detect_corpus`` (which runs them), and ``conv`` scans: the
+    f32 conv's detections equal the reference's (times and template
+    ids identical, scores at rtol 1e-5)."""
+    cfg = TC.PipelineConfig(detect=TC.DetectConfig(batch_size=3, **detect_kw))
+    if "exact_scores" in detect_kw:
+        with pytest.raises(ValueError, match="detect_corpus"):
+            tscan.detect_corpus_stream(TAdapter(synth), tbank, cfg, "aa")
+        return
+    if detect_kw["score_backend"] == "pallas":
+        with pytest.raises(ValueError, match="fft|conv"):
+            tscan.detect_corpus_stream(TAdapter(synth), tbank, cfg, "aa")
+        return
+    jcfg = JC.PipelineConfig(detect=JC.DetectConfig(batch_size=3, **detect_kw))
+    want = jax_detect_corpus_stream(SyntheticAdapter(synth), jbank, jcfg, "aa")
+    got = tscan.detect_corpus_stream(TAdapter(synth), tbank, cfg, "aa")
+    assert len(got.detections.scores) == len(want.detections.scores) > 0
+    for (sg, tg, kg), (sw, tw, kw) in zip(_per_utt(got), _per_utt(want)):
+        np.testing.assert_array_equal(tg, tw)
+        np.testing.assert_array_equal(kg, kw)
+        np.testing.assert_allclose(sg, sw, rtol=1e-5)
+    assert got.counters["batches"] == 3
 
 
 def _cfgs(top_r=1, **detect_kw):
