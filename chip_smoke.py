@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. builds the eleven CUDA kernels of the port from
+1. builds the eleven CUDA kernels of the port from the ten sources in
    ``template_speech_recognition_tpu_torch/csrc`` (one nvcc per source,
    all started together);
 2. calls each kernel's wrapper on the card at the shapes the scan gives
@@ -23,7 +23,9 @@
    not the enqueue; the yardstick is ``torch.kthvalue`` for both ranks,
    which stands for the whole 11-launch select), binarize + spread, the
    layered path against the two-kernel path at the default shape
-   (bitwise), and pair LLR and the int8 bin matmul at D = 504.  The
+   (bitwise), and pair LLR and the int8 and bf16 bin matmuls at D = 504
+   (the bf16 one on the log-mel scan's own spectra and bank, a second
+   ``fft_binmm`` entry in the kernels line, tagged by ``shape``).  The
    direct correlation kernel runs at the reference's bench shape (8
    maps of T = 3000 frames of the scan's frontend, K = 1024, L = 32,
    D = 2048; its yardstick is ``conv1d`` in bf16).
@@ -31,8 +33,10 @@
    tiles, odd nfft, an utterance with no valid row, ties and -0.0,
    DTW at L = 32, 48, 96, 128 and 200 with ragged segment lengths and band
    1, LLR windows past the map's end, F = 39 and 63, unaligned radix
-   rows, correlation at K = 3, D = 40 and 504, L = 1, 9, 48 and T) and
-   holds it against its plain version;
+   rows, correlation at K = 3, D = 40 and 504, L = 1, 9, 48 and T, the
+   TMA + wgmma bin matmul at m = 1, 63, 64, 65, 96 x D = 8, 40, 504 x
+   K = 8, 136 x bins = 1, 3, the 4-D input, and a misaligned base
+   pointer that must raise) and holds it against its plain version;
 3. drives the scan itself, ``detect_corpus_stream``, at full width over
    19 utterances of 30 s (two batches of 8 and a tail of 3 padded to
    4, whose padding row has no valid frame), with every launch count
@@ -52,10 +56,13 @@
    ``sliding_scores_backend(backend="pallas")``, on the 8 maps one
    utterance at a time (the correlation kernel's path), against
    ``backend="fft"``; the streaming scan with ``score_backend="conv"``
-   (the f32 conv, as in the reference) against the default scan's
-   detections; and ``pipeline.detect_corpus(exact_scores=True)`` on one
-   batch, whose int32 scores of one utterance are held bitwise against
-   the same function on the CPU.
+   (the f32 conv, as in the reference), whose agreement with the default
+   scan is printed, and on one batch against the per-utterance conv loop
+   (identical peaks); ``pipeline.detect_corpus(exact_scores=True)`` on
+   one batch, whose int32 scores of one utterance are held bitwise
+   against the same function on the CPU; and the same loop with DTW
+   rescoring (verify-the-winner, f32 filters), whose DTW scores are held
+   against the CPU's rescore of the same peaks within 1e-5 x max|score|.
 
 The default and the log-mel scan are each run once more under
 ``torch.profiler``: the union of the device intervals in the scan loop,
@@ -85,13 +92,16 @@ HBM_BPS = 3.35e12          # H100 SXM device memory, bytes/s
 FP32_FLOPS = 67e12         # fp32 outside the tensor cores
 BF16_FLOPS = 989e12        # bf16 tensor cores, dense
 INT8_OPS = 1979e12         # int8 tensor cores, dense
-STEMS = ("frontend_planes", "select_binspread", "fft_gemm", "banded_dtw", "pair_llr",
-         "fft_binmm_int8", "radix_counts", "binspread", "correlation")
+STEMS = ("frontend_planes", "select_binspread", "fft_gemm", "fft_binmm", "banded_dtw",
+         "pair_llr", "fft_binmm_int8", "radix_counts", "binspread", "correlation")
 # kernels each scan must launch (launch-count names)
 SCAN_KERNELS = ("frontend_planes", "select_binspread", "fft_block_dft", "fft_binmm",
                 "fft_idft")
 MEL_KERNELS = ("frontend_planes_mel", "radix_counts", "binspread", "fft_block_dft",
                "fft_binmm", "fft_idft")
+# the two shapes at which the kernels line reports fft_binmm
+BINMM_BENCH = "bench: bins 80, m 192, D 2048, K 1024"
+BINMM_MEL = "log-mel: bins 80, m 192, D 504, K 1024"
 
 
 class CheckFailed(Exception):
@@ -438,6 +448,34 @@ def small_shape_checks(torch, dev, audio, k1, k2, k3, k4, k5, kp, kd, k8, k9, kc
     xi = torch.randn(bins, b, nblk, d, device=dev).to(torch.bfloat16)
     w2 = torch.randn(bins, 2 * d, k, device=dev).to(torch.bfloat16)
     close(k4.fft_binmm(xr, xi, w2), k4.fft_binmm_plain(xr, xi, w2), tol, "fft_binmm")
+
+    # the TMA + wgmma bin matmul at ragged shapes: m around the 64-row
+    # slab and the tail batch's 96, D short of or past a 64-wide k tile
+    # (8, 40, 504), K short of a 256-wide tile, one and three bins (rows
+    # past m must read zeros, not the next bin); the 4-D [bins, B, nblk,
+    # D] input; a base pointer 2 bytes off, which TMA cannot take
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=gen).to(torch.bfloat16)
+
+    for nb in (1, 3):
+        for mm in (1, 63, 64, 65, 96):
+            for dd in (8, 40, 504):
+                for kk in (8, 136):
+                    a_r, a_i, w_s = rnd(nb, mm, dd), rnd(nb, mm, dd), rnd(nb, 2 * dd, kk)
+                    close(k4.fft_binmm(a_r, a_i, w_s), k4.fft_binmm_plain(a_r, a_i, w_s), tol,
+                          f"fft_binmm (bins={nb}, m={mm}, D={dd}, K={kk})")
+    a_r, a_i, w_s = rnd(3, 3, 32, 504), rnd(3, 3, 32, 504), rnd(3, 1008, 136)
+    close(k4.fft_binmm(a_r, a_i, w_s), k4.fft_binmm_plain(a_r, a_i, w_s), tol,
+          "fft_binmm (4-D input, B=3)")
+    off = rnd(3 * 96 * 40 + 8)[1 : 1 + 3 * 96 * 40].view(3, 96, 40)
+    check(off.data_ptr() % 16 == 2, "the misaligned view is not misaligned")
+    try:
+        k4.fft_binmm(off, rnd(3, 96, 40), rnd(3, 80, 136))
+        check(False, "fft_binmm took a base pointer that is not 16-byte aligned")
+    except ValueError:
+        pass
     ycat = torch.randn(2 * bins, m * k, device=dev).to(torch.bfloat16)
     icm, ism = fs._idft_mats(nfft, hop, torch.bfloat16, dev)
     imat = torch.cat([icm, -ism], dim=0).contiguous()
@@ -557,10 +595,11 @@ def small_shape_checks(torch, dev, audio, k1, k2, k3, k4, k5, kp, kd, k8, k9, kc
                         f"banded_dtw (small, L={length}, band={band})")
 
 
-def take_launches(rows, names, counts):
-    """Each listed kernel's row takes its launch count from this run."""
+def take_launches(rows, names, counts, shape=None):
+    """Each listed kernel's row (only the row of ``shape``, if given)
+    takes its launch count from this run."""
     for row in rows:
-        if row["name"] in names:
+        if row["name"] in names and (shape is None or row.get("shape") == shape):
             row["launches"] = int(counts.get(row["name"], 0))
 
 
@@ -734,6 +773,30 @@ def mel_kernel_checks(torch, M, dev, wavs, nvalid, valid, frames2, bank_mel, rec
           "fft_binmm_int8 (D=504): not bitwise")
     ms_8 = time_ms(torch, lambda: k4.fft_binmm_int8(xq_r, xq_i, fbank8.w2, sc8))
     m = B * nblk
+
+    # the bf16 bin matmul at D = 504 on the log-mel scan's own block
+    # spectra and bf16 bank: the last k tile of each half is partial
+    # (504 = 7 x 64 + 56) and TMA's zero fill completes it
+    bins_m = nfft_s // 2 + 1
+    fbank16 = fs.build_fft_bank(filters_to_flat(wf_m), cf_m, mm_dtype=torch.bfloat16)
+    check(tuple(fbank16.w2.shape) == (bins_m, 2 * d, K) and m == 192,
+          f"log-mel bin matmul shape {tuple(fbank16.w2.shape)}, m {m}")
+    y4 = k4.fft_binmm(xr, xi, fbank16.w2)
+    y4_ref = k4.fft_binmm_plain(xr, xi, fbank16.w2)
+    err4 = float((y4.float() - y4_ref.float()).abs().max())
+    ref4 = float(y4_ref.float().abs().max())
+    check(err4 <= 2.0 ** -7 * ref4, f"fft_binmm (D=504): {err4} > 2^-7 * {ref4}")
+    xr3, xi3 = xr.reshape(bins_m, m, d), xi.reshape(bins_m, m, d)
+    x2 = torch.cat([torch.cat([xr3, xi3], 2), torch.cat([xi3, -xr3], 2)], 1)
+    record(
+        k4, err4, "2^-7 * max|ref|",
+        time_ms(torch, lambda: k4.fft_binmm(xr, xi, fbank16.w2)),
+        time_ms(torch, lambda: k4.fft_binmm_plain(xr, xi, fbank16.w2)),
+        time_ms(torch, lambda: torch.bmm(x2, fbank16.w2)),
+        2 * bins_m * m * d * 2 + fbank16.w2.numel() * 2 + 2 * bins_m * m * K * 2,
+        2 * (2 * m) * (2 * d) * K * bins_m, BF16_FLOPS, shape=BINMM_MEL,
+    )
+    del y4, y4_ref, x2, fbank16
     b8, _ = bound_ms(2 * (nfft_s // 2 + 1) * m * d + fbank8.w2.numel() + sc8.numel() * 4
                      + 2 * (nfft_s // 2 + 1) * m * K * 2,
                      2 * (2 * m) * (2 * d) * K * (nfft_s // 2 + 1), INT8_OPS)
@@ -777,7 +840,11 @@ def main() -> int:
         filters_to_flat,
         flat_to_channels,
     )
-    from template_speech_recognition_tpu_torch.pipeline import detect_corpus
+    from template_speech_recognition_tpu_torch.pipeline import (
+        _detect_corpus_loop,
+        detect_corpus,
+        dtw_rescore_detections,
+    )
     from template_speech_recognition_tpu_torch.scan import (
         bucket_length,
         detect_corpus_stream,
@@ -842,14 +909,17 @@ def main() -> int:
     m = B * nblk
     rows = []
 
-    def record(mod, err, tol, ms, plain_ms, lib_ms, nbytes, ops, rate):
+    def record(mod, err, tol, ms, plain_ms, lib_ms, nbytes, ops, rate, shape=None):
         bms, by = bound_ms(nbytes, ops, rate)
         rows.append(dict(
             name=mod.NAME, route="cuda", source=mod.SOURCE, replaces=mod.REPLACES,
             launches=0, max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
             bound_ms=bms, bound_by=by, library_ms=lib_ms,
         ))
-        say(f"{mod.NAME}: max_abs_err {err:.6g} (tolerance {tol}) kernel {ms:.4f} ms "
+        if shape is not None:
+            rows[-1]["shape"] = shape
+        say(f"{mod.NAME}{f' ({shape})' if shape else ''}: max_abs_err {err:.6g} "
+            f"(tolerance {tol}) kernel {ms:.4f} ms "
             f"plain {plain_ms:.4f} ms library {lib_ms if lib_ms is None else round(lib_ms, 4)} "
             f"ms bound {bms:.4f} ms ({by})")
 
@@ -918,6 +988,7 @@ def main() -> int:
     del blocks
 
     # kernel 4: bin matmul; bf16 output
+    check((bins, m, d, K) == (80, 192, 2048, 1024), f"bin matmul shape {(bins, m, d, K)}")
     ycat = k4.fft_binmm(xr, xi, fbank.w2)
     ycat_ref = k4.fft_binmm_plain(xr, xi, fbank.w2)
     err4 = float((ycat.float() - ycat_ref.float()).abs().max())
@@ -931,7 +1002,7 @@ def main() -> int:
         time_ms(torch, lambda: k4.fft_binmm_plain(xr, xi, fbank.w2)),
         time_ms(torch, lambda: torch.bmm(x2, fbank.w2)),
         2 * bins * m * d * 2 + fbank.w2.numel() * 2 + 2 * bins * m * K * 2,
-        2 * (2 * m) * (2 * d) * K * bins, BF16_FLOPS,
+        2 * (2 * m) * (2 * d) * K * bins, BF16_FLOPS, shape=BINMM_BENCH,
     )
     del x2
 
@@ -1223,6 +1294,7 @@ def main() -> int:
               f"{label}: {counts.get('radix_counts', 0)} radix launches")
         if not dkw:
             take_launches(rows, ("frontend_planes_mel", "radix_counts", "binspread"), counts)
+            take_launches(rows, ("fft_binmm",), counts, shape=BINMM_MEL)
         stages = " ".join(
             f"{s_} {ctr.get(f'device_ms_{s_}', 0.0) / ctr['batches']:.3f} ms"
             for s_ in ("frontend", "score", "nms", "dtw") if f"device_ms_{s_}" in ctr
@@ -1294,17 +1366,42 @@ def main() -> int:
     )
     dk = res.detections
     check(len(dk.scores) > 0 and bool(np.isfinite(dk.scores).all()), "no conv detections")
+    # printed only: the bf16 FFT scorer moves borderline NMS peaks, so
+    # this measures the fft scan's error, not the conv's
     frac, id_frac, diff, top = match_detections(dk, fft_dets)
     say(f"conv scan: {ctr['utterances']:.0f} utterances, {ctr['audio_seconds']:.1f} audio-s, "
         f"{ctr['audio_s_per_s']:.1f} audio-s/s (scan loop {ctr['time_scan_s']:.4f} s; with the "
         f"bank build {wall:.4f} s); mean device time per batch ({ctr['batches']:.0f} "
-        f"batches): {stages} (CUDA events); launches {counts}; vs the fft scan: "
-        f"{len(dk.scores)} vs {len(fft_dets.scores)} detections, {frac:.4f} matched peaks, "
-        f"{id_frac:.4f} same template, score max diff {diff:.6g} = {diff / top:.3g} of "
+        f"batches): {stages} (CUDA events); launches {counts}; vs the fft scan (not a "
+        f"check): {len(dk.scores)} vs {len(fft_dets.scores)} detections, {frac:.4f} matched "
+        f"peaks, {id_frac:.4f} same template, score max diff {diff:.6g} = {diff / top:.3g} of "
         f"max|score|")
-    check(frac >= 0.99, f"conv scan: matched peaks {frac} < 0.99")
-    check(id_frac >= 0.99, f"conv scan: template ids agree on {id_frac} < 0.99")
     del res
+    # the check: the conv scan on one batch against the per-utterance
+    # conv loop on the same utterances (both the f32 conv, TF32 off):
+    # identical (time, template) peaks, scores within 1e-5 x max|score|
+    head = corpus.head(B)
+    res = detect_corpus_stream(head, bank, conv_cfg, target_phone="aa")
+    loop = _detect_corpus_loop(head, bank, conv_cfg, target_phone="aa")
+    dk, dl = res.detections, loop.detections
+    check(len(dk.scores) == len(dl.scores) > 0,
+          f"conv scan vs conv loop: {len(dk.scores)} vs {len(dl.scores)} detections")
+    diff_c, top_c = 0.0, float(np.max(np.abs(dl.scores)))
+    for ui in range(B):
+        a = sorted(zip(dk.times[dk.utterance_ids == ui].tolist(),
+                       dk.template_ids[dk.utterance_ids == ui].tolist(),
+                       dk.scores[dk.utterance_ids == ui].tolist()))
+        b = sorted(zip(dl.times[dl.utterance_ids == ui].tolist(),
+                       dl.template_ids[dl.utterance_ids == ui].tolist(),
+                       dl.scores[dl.utterance_ids == ui].tolist()))
+        check([x[:2] for x in a] == [x[:2] for x in b],
+              f"conv scan vs conv loop: utterance {ui}'s (time, template) peaks differ")
+        diff_c = max([diff_c] + [abs(x[2] - y[2]) for x, y in zip(a, b)])
+    say(f"conv scan vs conv loop ({B} utterances): {len(dk.scores)} identical (time, "
+        f"template) peaks, score max diff {diff_c:.6g} = {diff_c / top_c:.3g} of max|score| "
+        f"{top_c:.6g} (tolerance 1e-5)")
+    check(diff_c <= 1e-5 * top_c, f"conv scan vs conv loop: scores differ by {diff_c}")
+    del res, loop
 
     # ---- exact int32 scores through pipeline.detect_corpus, one batch --
     ex_cfg = C.PipelineConfig(detect=C.DetectConfig(exact_scores=True))
@@ -1352,7 +1449,63 @@ def main() -> int:
         f"launches {counts}; utterance 0: {si_cpu.numel()} int32 scores bitwise equal on "
         f"the card and on the CPU ({cpu_s:.2f} s there), its {int(sel.sum())} detections "
         f"equal to NMS of them")
-    del res, si_gpu, si_cpu, w_int
+    del si_gpu, si_cpu, w_int
+
+    # ---- the exact loop with DTW rescoring (top_r 1) on f32 filters ----
+    # the loop rescores on the gathered f32 route on every device (the
+    # reference loop's): its DTW scores on the card against the same
+    # rescore on the CPU, over the card's feature maps and the peaks of
+    # the exact run above (the peaks this run rescores)
+    exd_cfg = C.PipelineConfig(detect=C.DetectConfig(exact_scores=True, dtw_rescore=True))
+    check(exd_cfg.dtw.top_r == 1, "verify-the-winner is the default")
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    resd = detect_corpus(head, bank, exd_cfg, target_phone="aa")
+    torch.cuda.synchronize()
+    wall_d = time.perf_counter() - t0
+    counts = _cuda.launch_counts()
+    check(counts.get("banded_dtw", 0) == B, f"exact DTW loop: launches {counts}")
+    check(counts.get("pair_llr", 0) == 0, "the exact loop's DTW took the bf16 map route")
+    w_rows_c, c_rows_c = bank.llr_rows()
+    w_rows_c, c_rows_c = filters_to_flat(w_rows_c).cpu(), c_rows_c.cpu()
+    band_d = exd_cfg.dtw.band
+    dd, dx = resd.detections, res.detections
+    diff_d = top_d = 0.0
+    for ui, (_u, wav, _p) in enumerate(head.utts):
+        pad_u = bucket_length(len(wav))
+        buf = torch.zeros((1, pad_u), dtype=torch.float32)
+        buf[0, : len(wav)] = torch.from_numpy(wav)
+        fm_u = fp.frontend_batch_flat(
+            buf.to(dev), torch.tensor([len(wav)], dtype=torch.int32, device=dev), fcfg)
+        sel = dx.utterance_ids == ui
+        s_c, k_c = dtw_rescore_detections(
+            fm_u.binary[0, : fcfg.num_feature_frames(pad_u)].cpu(),
+            fm_u.valid_frames[0].cpu(),
+            torch.from_numpy(np.asarray(dx.scores[sel], np.float32)),
+            torch.from_numpy(np.asarray(dx.times[sel], np.int64)), w_rows_c, c_rows_c,
+            L + band_d, band_d, ids=torch.from_numpy(np.asarray(dx.template_ids[sel], np.int64)),
+            top_r=1,
+        )
+        fin = torch.isfinite(s_c).numpy()
+        want = dict(zip(dx.times[sel][fin].tolist(), zip(k_c.numpy()[fin].tolist(),
+                                                          s_c.numpy()[fin].tolist())))
+        seld = dd.utterance_ids == ui
+        got = dict(zip(dd.times[seld].tolist(), zip(dd.template_ids[seld].tolist(),
+                                                    dd.scores[seld].tolist())))
+        check(len(want) > 0 and set(got) == set(want),
+              f"exact DTW loop: utterance {ui}'s peaks differ from the CPU rescore")
+        for t_, (k_, s_) in got.items():
+            check(k_ == want[t_][0], f"exact DTW loop: utterance {ui}, time {t_}: template "
+                                     f"{k_} on the card, {want[t_][0]} on the CPU")
+            diff_d = max(diff_d, abs(s_ - want[t_][1]))
+            top_d = max(top_d, abs(want[t_][1]))
+    say(f"exact detect_corpus with DTW (top_r 1, {B} utterances): {wall_d:.3f} s, "
+        f"{resd.counters['audio_s_per_s']:.1f} audio-s/s, {len(dd.scores)} detections, "
+        f"launches {counts}; vs the CPU rescore of the same peaks: identical template ids, "
+        f"DTW score max diff {diff_d:.6g} = {diff_d / top_d:.3g} of max|score| {top_d:.6g} "
+        f"(tolerance 1e-5)")
+    check(diff_d <= 1e-5 * top_d, f"exact DTW loop: {diff_d} > 1e-5 * {top_d}")
+    del res, resd
 
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -1,11 +1,13 @@
-// Kernels 3-5 of the overlap-save FFT scorer: one tiled GEMM routine.
+// Kernels 3 and 5 of the overlap-save FFT scorer: one tiled GEMM routine.
 //
 //   3. fft_block_dft  replaces ops/fft_dft_pallas.py   fft_block_dft_pallas
-//   4. fft_binmm      replaces ops/fft_binmm_pallas.py fft_binmm_pallas (bf16)
 //   5. fft_idft       replaces ops/fft_idft_pallas.py  fft_idft_pallas
 //   (paths under template_speech_recognition_tpu/)
 //
-// All three are batched GEMMs  C[z] (M x N) = A[z] (M x K) . B[z] (K x N)
+// (Kernel 4, the per-bin bank matmul, runs on its own TMA + wgmma
+// pipeline in fft_binmm.cu.)
+//
+// Both are batched GEMMs  C[z] (M x N) = A[z] (M x K) . B[z] (K x N)
 // with bf16 operands and fp32 accumulation; they differ only in how the
 // operands are gathered and how the results are scattered.  gemm_kernel
 // is written once over an Ops policy that supplies:
@@ -19,9 +21,8 @@
 // global loads in flight in registers while the current one feeds
 // mma.sync m16n8k16 (fragments through ldmatrix).  Shared rows are
 // padded by 8 bf16 so the ldmatrix phases hit distinct banks.  Grid
-// x = M tiles (fastest), so the blocks that share one B tile (the W2
-// spectra in the bin matmul) run together and B streams from device
-// memory once.  wgmma/TMA come later; this is the simple version.
+// x = M tiles (fastest), so the blocks that share one B tile run
+// together and B streams from device memory once.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -70,11 +71,6 @@ __device__ __forceinline__ uint4 pack8(const bf16 (&v)[8]) {
   r.z = (uint32_t)__bfloat16_as_ushort(v[4]) | ((uint32_t)__bfloat16_as_ushort(v[5]) << 16);
   r.w = (uint32_t)__bfloat16_as_ushort(v[6]) | ((uint32_t)__bfloat16_as_ushort(v[7]) << 16);
   return r;
-}
-
-__device__ __forceinline__ uint4 negate8(uint4 v) {   // exact bf16 negation
-  v.x ^= 0x80008000u; v.y ^= 0x80008000u; v.z ^= 0x80008000u; v.w ^= 0x80008000u;
-  return v;
 }
 
 template <class Ops>
@@ -190,34 +186,6 @@ struct DftOps {
   }
 };
 
-// ---- 4. per-bin bank matmul ------------------------------------------
-// z = bin;  A = [Xr | Xi ; Xi | -Xr]  (2m x 2D), built here from the
-// xr/xi rows, never materialized;  B = W2[bin] (2D x K);
-// C[r][k] -> out[r / m, bin, r mod m, k] in bf16.
-struct BinmmOps {
-  const bf16* xr; const bf16* xi; const bf16* w2; bf16* out;
-  int bins, mh, D, K;
-  __device__ uint4 load_a(int z, int m, int k0, int M, int Kd) const {
-    if (m >= M || k0 >= Kd) return zero4();
-    const bool lower = m >= mh, second = k0 >= D;
-    const int r = lower ? m - mh : m;
-    const int kk = second ? k0 - D : k0;
-    const bf16* src = lower ? (second ? xr : xi) : (second ? xi : xr);
-    const uint4 v = *reinterpret_cast<const uint4*>(src + ((size_t)z * mh + r) * D + kk);
-    return (lower && second) ? negate8(v) : v;
-  }
-  __device__ uint4 load_b(int z, int k, int n0, int Kd, int N) const {
-    if (k >= Kd || n0 >= N) return zero4();
-    return *reinterpret_cast<const uint4*>(w2 + ((size_t)z * Kd + k) * N + n0);
-  }
-  __device__ void store(int z, int m, int n, float c0, float c1) const {
-    const int part = m >= mh ? 1 : 0;
-    const int r = m - part * mh;
-    *reinterpret_cast<__nv_bfloat162*>(out + (((size_t)part * bins + z) * mh + r) * K + n) =
-        __floats2bfloat162_rn(c0, c1);
-  }
-};
-
 // ---- 5. inverse-DFT epilogue -----------------------------------------
 // z = block j = b * nblk + i;  A[tau][r] = imat[r][tau] (imat: [2*bins, hop]);
 // B[r][k] = ycat[r, j*K + k];  C[tau][k] + c[k] -> out[j*hop + tau, k]
@@ -265,15 +233,6 @@ extern "C" int tsr_fft_block_dft(const void* x, const void* g, void* xr, void* x
   DftOps ops{static_cast<const bf16*>(x), static_cast<const bf16*>(g),
              static_cast<bf16*>(xr), static_cast<bf16*>(xi), B, T, D, hop, nblk, bins};
   return launch(ops, 2 * bins, D, nfft, B * nblk, stream);
-}
-
-// xr, xi [bins, m, D], w2 [bins, 2D, K] -> out [2, bins, m, K]; all bf16.
-// D % 8 == 0, K % 8 == 0.
-extern "C" int tsr_fft_binmm(const void* xr, const void* xi, const void* w2, void* out,
-                             int bins, int m, int D, int K, void* stream) {
-  BinmmOps ops{static_cast<const bf16*>(xr), static_cast<const bf16*>(xi),
-               static_cast<const bf16*>(w2), static_cast<bf16*>(out), bins, m, D, K};
-  return launch(ops, 2 * m, K, 2 * D, bins, stream);
 }
 
 // ycat [2*bins, m*K] bf16, imat [2*bins, hop] bf16, c [K] f32

@@ -8,23 +8,31 @@ Per frequency bin: ``[Xr | Xi ; Xi | -Xr] [2m, 2D] @ W2 [2D, K]`` with
 fp32 accumulation, written ``[2, bins, m, K]`` in the input dtype:
 ``y[0]`` is the real part of ``Xf * conj(Wf)``, ``y[1]`` the imaginary.
 
-CUDA design (``csrc/fft_gemm.cu``, ``BinmmOps``): one GEMM per bin,
-M = 2m, N = K, K = 2D, on the shared mma.sync tile routine.  The packed
-operand is built in the A-operand load from the xr/xi rows (the
-``-Xr`` block by flipping bf16 sign bits), never materialized.  The
-M tiles of one (bin, K tile) are adjacent in the grid, so each W2 tile
-is read from device memory once and from L2 by its neighbours.
+CUDA design (``csrc/fft_binmm.cu``): TMA loads into a 4-stage
+shared-memory ring feed ``wgmma`` from one producer warp.  A block owns
+a 64-row slab of m, a 256-wide tile of K and one bin; consumer
+warpgroup 0 accumulates the real part and warpgroup 1 the imaginary
+part on the same stages (an Xr tile, an Xi tile and a W2 tile each).
+The contraction runs over W2's two halves in turn; in the second, the
+imaginary part multiplies Xr with ``wgmma``'s immediate scale-a = -1,
+so the packed operand is never built.  W2 is read in place as an
+MN-major B operand (transpose-B, 128-byte swizzle); rows past m, D and
+K are TMA's zero fill.  Slabs are adjacent in the grid, so W2 streams
+from device memory about once.
 
-What bounds it on the H100: bf16 operations, closely followed by bytes.
+What bounds it on the H100: bf16 operations, just above the ridge.
 258 GFLOP (m=192, D=2048, K=1024, bins=80) take 0.26 ms at 989
-TFLOP/s; W2 (671 MB) plus xr/xi and the output take 0.23 ms.
+TFLOP/s; W2 (671 MB) plus xr/xi and the output take 0.23 ms.  The
+mma.sync routine it replaced ran at ~15% of that peak, fed from
+registers, without a deep enough ring to hide the W2 stream.
 
 The int8 mode (``fft_binmm_int8``, the ``DetectConfig.int8_spectra``
 bank) replaces the same ``pallas_call`` running ``_kernel_q`` (line
 81): int8 x int8 -> exact int32, flushed as ``bf16(f32(acc) * sc[bin,
-k])``.  Its kernel (``csrc/fft_binmm_int8.cu``) keeps the tiling above
-on mma.sync m16n8k32 s8; W2 is K-contiguous, so each thread transposes
-4 x 4 bytes of it with byte permutes on the way into shared memory.
+k])``.  Its kernel (``csrc/fft_binmm_int8.cu``) keeps the 128 x 128
+tile of ``csrc/fft_gemm.cu`` on mma.sync m16n8k32 s8; W2 is
+K-contiguous, so each thread transposes 4 x 4 bytes of it with byte
+permutes on the way into shared memory.
 D need only be a multiple of 8 (log-mel D = 504: rows 8-byte aligned).
 What bounds it: bytes, 461 MB (int8 W2 336 MB, xr/xi, bf16 output) in
 0.138 ms at 3.35 TB/s; 258 G int8 operations take 0.130 ms at 1979
@@ -39,7 +47,7 @@ import torch
 from template_speech_recognition_tpu_torch.ops import _cuda
 
 NAME = "fft_binmm"
-SOURCE = "template_speech_recognition_tpu_torch/csrc/fft_gemm.cu"
+SOURCE = "template_speech_recognition_tpu_torch/csrc/fft_binmm.cu"
 REPLACES = "template_speech_recognition_tpu/ops/fft_binmm_pallas.py:202"
 INT8_NAME = "fft_binmm_int8"
 INT8_SOURCE = "template_speech_recognition_tpu_torch/csrc/fft_binmm_int8.cu"
@@ -78,8 +86,10 @@ def fft_binmm(xr, xi, w2):
         raise ValueError(f"bad shapes: xr {tuple(xr.shape)}, w2 {tuple(w2.shape)}")
     if d % 8 or k % 8:
         raise ValueError(f"D={d} and K={k} must be multiples of 8")
+    if any(a.data_ptr() % 16 for a in (xr3, xi3, w2)):
+        raise ValueError("xr, xi and w2 must be 16-byte aligned")
     out = torch.empty((2, bins, m, k), dtype=torch.bfloat16, device=xr.device)
-    lib = _cuda.load("fft_gemm")
+    lib = _cuda.load("fft_binmm")
     fn = _cuda.declare(lib, "tsr_fft_binmm", 4, 4)
     err = fn(
         _cuda.ptr(xr3), _cuda.ptr(xi3), _cuda.ptr(w2), _cuda.ptr(out),

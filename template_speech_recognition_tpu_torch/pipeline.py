@@ -53,10 +53,12 @@ def dtw_rescore_detections(binary_map, valid_frames, scores, times, w_rows, c_ro
     """Config 4 for one utterance: re-score its top-K peaks [P] with
     banded DTW over segments of up to ``m_seg`` frames of the flat map
     [T', D]; returns (scores [P], template ids [P]); empty slots stay
-    -inf.  ``top_r=1`` rescores each peak against its winner only."""
+    -inf.  ``top_r=1`` rescores each peak against its winner only, on
+    f32 filters at full precision on every device (the gathered route),
+    as the reference's loop does; only the stream takes bf16 filters."""
     s, k = dtw_rescore_batched(
         binary_map[None], valid_frames.reshape(1), scores[None], times[None], ids[None],
-        w_rows, c_rows, m_seg, band, top_r=top_r,
+        w_rows, c_rows, m_seg, band, top_r=top_r, route="gathered",
     )
     return s[0], k[0]
 

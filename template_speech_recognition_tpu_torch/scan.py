@@ -92,23 +92,40 @@ class DTWRescore:
     top_r: int             # 1 verify-the-winner, 0 exhaustive
 
 
+DTW_ROUTES = ("auto", "map", "gathered")
+
+
 def dtw_rescore_batched(binary, valid_frames, scores, times, ids,
-                        w_rows, c_rows, m_seg, band, top_r=0, plain=False):
+                        w_rows, c_rows, m_seg, band, top_r=0, plain=False,
+                        route="auto"):
     """Batched config-4 rescore of the top-K peaks [B, P] -> (scores,
     ids) [B, P]; empty slots (score -inf) stay -inf with id 0.
 
     ``top_r == 1`` (verify-the-winner): each peak against the template
-    that won it; on the card straight from the feature map
-    (``dtw_pairwise_scores_from_map``: the pair-LLR and DTW kernels, or
-    their plain versions with ``plain``), on the CPU over gathered fp32
-    segments (``dtw_pairwise_scores``), as the reference does off its
-    accelerator.  ``top_r == 0`` (exhaustive): every peak against every
-    template (``dtw_keyword_scores_batch``), keeping the best."""
+    that won it, by one of two routes (``route``):
+
+    * ``route="map"``: straight from the feature map
+      (``dtw_pairwise_scores_from_map``: the pair-LLR kernel on bf16
+      filters, then the DTW kernel), the reference stream's bf16 class;
+    * ``route="gathered"``: over gathered segments and f32 filters at
+      full precision (``dtw_pairwise_scores``: an fp32 ``bmm``, then the
+      DTW kernel), the reference's per-utterance loop;
+    * ``route="auto"`` (the stream's): the map route on the card, the
+      gathered one on the CPU, as the reference does off its accelerator.
+
+    ``plain`` runs the kernels' plain versions.  ``top_r == 0``
+    (exhaustive): every peak against every template
+    (``dtw_keyword_scores_batch``), keeping the best; ``route`` is not
+    read."""
+    if route not in DTW_ROUTES:
+        raise ValueError(f"route must be one of {DTW_ROUTES}, got {route!r}")
+    if route == "auto":
+        route = "map" if binary.device.type == "cuda" else "gathered"
     b, p = scores.shape
     tdim = binary.shape[1]
     t_idx = torch.clamp(times.to(torch.int64), 0, tdim - 1)
     keep = torch.isfinite(scores)
-    if top_r == 1 and binary.device.type == "cuda":
+    if top_r == 1 and route == "map":
         pair1 = dtw_pairwise_scores_from_map(
             binary, t_idx, ids, w_rows, c_rows, valid_frames, m_seg, band,
             plain=plain,

@@ -110,6 +110,44 @@ def test_binmm_matches_pallas(problem):
     _close(got.numpy(), want)
 
 
+def _ceil(n, q):
+    return -(-n // q) * q
+
+
+@pytest.mark.parametrize("bins,batch,m,d,k", [
+    (5, None, 96, 504, 136),     # the tail batch's m at the log-mel D
+    (3, 4, 24, 504, 136),        # the same as the 4-D [bins, B, nblk, D] input
+    (2, None, 65, 40, 8),        # one row past a 64-row slab; narrow D and K
+], ids=["m96-D504-K136", "4d-B4-nblk24-D504", "m65-D40-K8"])
+def test_binmm_matches_pallas_ragged(bins, batch, m, d, k):
+    """The bin matmul at shapes off the Pallas contract (m % 8, K % 128,
+    D % dc): the reference runs on inputs zero-padded to it (each half
+    of W2's 2D rows padded on its own) and its valid slice is held
+    against the port's plain version, which takes the shapes as they
+    are; float32, the tolerance of ``_close``."""
+    rng = np.random.default_rng(10)
+    rows = m if batch is None else batch * m
+    lead = (bins, rows) if batch is None else (bins, batch, m)
+    xr = rng.standard_normal(lead + (d,)).astype(np.float32)
+    xi = rng.standard_normal(lead + (d,)).astype(np.float32)
+    w2 = rng.standard_normal((bins, 2 * d, k)).astype(np.float32)
+    dc = 256
+    mp, dp, kp = _ceil(rows, 8), _ceil(d, dc), _ceil(k, 128)
+    xr_p = np.zeros((bins, mp, dp), np.float32)
+    xi_p = np.zeros((bins, mp, dp), np.float32)
+    xr_p[:, :rows, :d] = xr.reshape(bins, rows, d)
+    xi_p[:, :rows, :d] = xi.reshape(bins, rows, d)
+    w2_p = np.zeros((bins, 2 * dp, kp), np.float32)
+    w2_p[:, :d, :k] = w2[:, :d]
+    w2_p[:, dp:dp + d, :k] = w2[:, d:]
+    want = fft_binmm_pallas(jnp.asarray(xr_p), jnp.asarray(xi_p), jnp.asarray(w2_p),
+                            dc=dc, interpret=True)
+    want = np.asarray(want)[:, :, :rows, :k]
+    got = fft_binmm(torch.from_numpy(xr), torch.from_numpy(xi), torch.from_numpy(w2))
+    assert tuple(got.shape) == (2, bins, rows, k)
+    _close(got.numpy(), want)
+
+
 def test_idft_matches_pallas(problem):
     _feats, _w, c = problem
     rng = np.random.default_rng(9)

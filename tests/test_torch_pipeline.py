@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
 import oracle as O
 from oracle.detect import bank_nms
 from oracle.frontend import FrontendParams
@@ -20,6 +22,7 @@ from template_speech_recognition_tpu import pipeline as jpipe
 from template_speech_recognition_tpu.pipeline import SyntheticAdapter, train_bank
 from template_speech_recognition_tpu_torch import config as TC
 from template_speech_recognition_tpu_torch import pipeline as tpipe
+from template_speech_recognition_tpu_torch import scan as tscan
 from template_speech_recognition_tpu_torch.convert import bank_from_numpy
 from template_speech_recognition_tpu_torch.corpus import SyntheticAdapter as TAdapter
 from template_speech_recognition_tpu_torch.detect import evaluate as tev
@@ -90,6 +93,109 @@ def test_detect_corpus_loop_matches_reference(synth, jbank4, tbank4, detect_kw):
     got = tpipe.detect_corpus(TAdapter(synth), tbank4, tcfg, "aa")
     exact = detect_kw.get("exact_scores", False) and not detect_kw.get("dtw_rescore")
     _assert_same(got, want, exact)
+
+
+@pytest.fixture(scope="module")
+def dtw_case(synth, jbank4, tbank4):
+    """One utterance's flat map and its top-K peaks (f32 conv scores,
+    NMS), with the reference bank's flat per-row filters: the inputs of
+    the verify-the-winner rescore, as numpy arrays for both packages."""
+    from template_speech_recognition_tpu.ops.layout import filters_to_flat as jflat
+    from template_speech_recognition_tpu_torch.detect.nms import top_detections
+    from template_speech_recognition_tpu_torch.detect.scorer import (
+        masked_scores,
+        sliding_scores,
+    )
+    from template_speech_recognition_tpu_torch.frontend import frontend_batch_flat
+    from template_speech_recognition_tpu_torch.ops.layout import filters_to_flat
+
+    cfg = TC.PipelineConfig()
+    fcfg = cfg.frontend
+    _uid, wav, _ph = next(iter(TAdapter(synth).iter_utterances()))
+    pad = bucket_length(len(wav))
+    buf = torch.zeros((1, pad), dtype=torch.float32)
+    buf[0, : len(wav)] = torch.from_numpy(np.asarray(wav, np.float32))
+    fm = frontend_batch_flat(buf, torch.tensor([len(wav)], dtype=torch.int32), fcfg)
+    fmap = fm.binary[0, : fcfg.num_feature_frames(pad)]
+    valid = fm.valid_frames[0]
+    w, c = tbank4.llr()
+    sc = masked_scores(sliding_scores(fmap, filters_to_flat(w), c), valid,
+                       tbank4.template_length)
+    s, t, k = top_detections(sc, cfg.detect.nms_radius,
+                             cfg.detect.effective_top_k(pad, fcfg.sample_rate))
+    jw, jc = jbank4.llr_rows()
+    return dict(fmap=fmap.numpy().astype(np.float32), valid=int(valid), s=s.numpy(),
+                t=t.numpy(), k=k.numpy(), w_rows=np.array(jflat(jnp.asarray(jw))),
+                c_rows=np.array(jc), band=cfg.dtw.band,
+                m_seg=tbank4.template_length + cfg.dtw.band)
+
+
+def _reference_rescore(case):
+    s, k = jpipe.dtw_rescore_detections(
+        jnp.asarray(case["fmap"]), jnp.int32(case["valid"]), jnp.asarray(case["s"]),
+        jnp.asarray(case["t"]), jnp.asarray(case["w_rows"]), jnp.asarray(case["c_rows"]),
+        case["m_seg"], case["band"], ids=jnp.asarray(case["k"]), top_r=1,
+    )
+    return np.asarray(s), np.asarray(k)
+
+
+@pytest.mark.parametrize("route,rel", [("gathered", 1e-5), ("map", 4e-3)])
+def test_dtw_rescore_routes_against_reference_loop(dtw_case, route, rel):
+    """``dtw_rescore_batched``'s two verify-the-winner routes against the
+    reference loop's rescore (f32 filters at HIGHEST) on the same peaks.
+    The gathered route is the loop's, f32 throughout: within 1e-5 x
+    max|score| (f32 summation order).  The map route rounds the filters
+    to bf16 (the reference stream's class, 4e-3 x max|score|); on this
+    fixture it sits about 1e-4 x max|score| off, past the loop's 1e-5,
+    which is why the loop does not take it."""
+    want_s, want_k = _reference_rescore(dtw_case)
+    got_s, got_k = tscan.dtw_rescore_batched(
+        torch.from_numpy(dtw_case["fmap"] > 0)[None],
+        torch.tensor([dtw_case["valid"]], dtype=torch.int32),
+        torch.from_numpy(dtw_case["s"])[None], torch.from_numpy(dtw_case["t"])[None],
+        torch.from_numpy(dtw_case["k"])[None], torch.from_numpy(dtw_case["w_rows"]),
+        torch.from_numpy(dtw_case["c_rows"]), dtw_case["m_seg"], dtw_case["band"],
+        top_r=1, plain=True, route=route,
+    )
+    got_s, got_k = got_s[0].numpy(), got_k[0].numpy()
+    finite = np.isfinite(want_s)
+    assert finite.sum() > 0
+    np.testing.assert_array_equal(np.isfinite(got_s), finite)
+    np.testing.assert_array_equal(got_k, want_k)
+    top = np.max(np.abs(want_s[finite]))
+    assert np.max(np.abs(got_s[finite] - want_s[finite])) <= rel * top
+
+
+def test_dtw_rescore_rejects_unknown_route(dtw_case):
+    with pytest.raises(ValueError, match="route"):
+        tscan.dtw_rescore_batched(
+            torch.zeros((1, 4, 8), dtype=torch.bool), torch.tensor([4]),
+            torch.zeros((1, 1)), torch.zeros((1, 1), dtype=torch.int32),
+            torch.zeros((1, 1), dtype=torch.int32), torch.zeros((1, 2, 8)),
+            torch.zeros((1, 2)), 3, 1, top_r=1, route="bf16",
+        )
+
+
+def test_loop_dtw_asks_for_the_f32_route(synth, tbank4, monkeypatch):
+    """The per-utterance loop rescores on f32 filters on every device:
+    it names the gathered route, and the map route (bf16 filters) is
+    never reached, here made to raise so the test holds on the CPU."""
+    routes = []
+    inner = tpipe.dtw_rescore_batched
+
+    def spy(*args, **kwargs):
+        routes.append(kwargs.get("route"))
+        return inner(*args, **kwargs)
+
+    def refuse(*_a, **_k):
+        raise AssertionError("the loop reached the bf16 map route")
+
+    monkeypatch.setattr(tpipe, "dtw_rescore_batched", spy)
+    monkeypatch.setattr(tscan, "dtw_pairwise_scores_from_map", refuse)
+    cfg = TC.PipelineConfig(detect=TC.DetectConfig(exact_scores=True, dtw_rescore=True))
+    res = tpipe._detect_corpus_loop(TAdapter(synth), tbank4, cfg, "aa")
+    assert len(res.detections.scores) > 0
+    assert routes == ["gathered"] * len(res.utt_ids)
 
 
 def test_loop_fft_branch_matches_reference(synth, jbank4, tbank4):
