@@ -36,7 +36,13 @@
    rows, correlation at K = 3, D = 40 and 504, L = 1, 9, 48 and T, the
    TMA + wgmma bin matmul at m = 1, 63, 64, 65, 96 x D = 8, 40, 504 x
    K = 8, 136 x bins = 1, 3, the 4-D input, and a misaligned base
-   pointer that must raise) and holds it against its plain version;
+   pointer that must raise) and holds it against its plain version.
+   Kernel 1 is also held, everywhere, to the float64 planes within an
+   fp32 error bound; how far kernel and plain version are from float64
+   is printed, and kernel 1's rows of the kernels line carry the bound
+   of three TF32 passes on the tensor cores (``tf32_bound_ms``) beside
+   the fp32 one.  Printed only: the share of the default scan's
+   first-batch map cells that differ from its plain run's;
 3. drives the scan itself, ``detect_corpus_stream``, at full width over
    19 utterances of 30 s (two batches of 8 and a tail of 3 padded to
    4, whose padding row has no valid frame), with every launch count
@@ -91,6 +97,7 @@ T_BENCH = 3000             # frames per utterance of the reference's bench.py
 HBM_BPS = 3.35e12          # H100 SXM device memory, bytes/s
 FP32_FLOPS = 67e12         # fp32 outside the tensor cores
 BF16_FLOPS = 989e12        # bf16 tensor cores, dense
+TF32_FLOPS = 495e12        # TF32 tensor cores, dense
 INT8_OPS = 1979e12         # int8 tensor cores, dense
 STEMS = ("frontend_planes", "select_binspread", "fft_gemm", "fft_binmm", "banded_dtw",
          "pair_llr", "fft_binmm_int8", "radix_counts", "binspread", "correlation")
@@ -251,55 +258,19 @@ class Corpus:
         return out
 
 
-def planes64(torch, frames, nfft, sample_rate, n_mels):
-    """Kernel 1's function in float64, and for every cell a bound on the
-    error of an fp32 evaluation in any summation order: each DFT sum of
-    n terms is off by at most n * u * sum|terms| (u = 2^-24), which
-    carries through the power, the mel sum, the log and the difference
-    (plus one rounding each, and 4 ulps for logf)."""
-    from template_speech_recognition_tpu_torch.ops.dft import (
-        LOG_EPS, dft_matrices, mel_filterbank,
-    )
-
-    u, eps = 2.0 ** -24, float(LOG_EPS)
-    n = frames.shape[1]
-    cos_m, sin_m = (m.double() for m in dft_matrices(n, nfft, frames.device))
-    x = frames.double()
-    re, im = x @ cos_m, x @ sin_m
-    dre, dim = n * u * (x.abs() @ cos_m.abs()), n * u * (x.abs() @ sin_m.abs())
-    p = re * re + im * im
-    dp = 2 * re.abs() * dre + 2 * im.abs() * dim + dre ** 2 + dim ** 2 + 3 * u * p
-    half = 1.0
-    if n_mels:
-        fb = mel_filterbank(sample_rate, nfft, n_mels, frames.device).double()
-        dp = dp @ fb + fb.shape[0] * u * (p @ fb)
-        p = p @ fb
-        f = n_mels - 1
-    else:
-        half = 0.5
-        f = nfft // 2
-    rel = (dp + u * (p + eps)) / (p + eps)
-    ds = torch.where(rel < 0.5, -torch.log1p(-rel.clamp(max=0.5)), torch.full_like(rel, 1e3))
-    spec = half * torch.log(p + eps)
-    ds = half * ds + 4 * u * spec.abs()
-    nxt, dnx = torch.cat([spec[1:], spec[-1:]]), torch.cat([ds[1:], ds[-1:]])
-    ref = torch.stack([nxt[:, :f] - spec[:, :f], spec[:, 1 : f + 1] - spec[:, :f],
-                       nxt[:, 1 : f + 1] - spec[:, :f], nxt[:, :f] - spec[:, 1 : f + 1]])
-    bound = torch.stack([dnx[:, :f] + ds[:, :f], ds[:, 1 : f + 1] + ds[:, :f],
-                         dnx[:, 1 : f + 1] + ds[:, :f], dnx[:, :f] + ds[:, 1 : f + 1]])
-    return ref, bound + u * ref.abs()
-
-
-def check_planes(torch, frames, nfft, got, want, name, sample_rate=0, n_mels=0):
-    """Kernel 1 against its plain version: scaled error (max |error| /
-    max |plain|) <= 1e-5 on the cells whose four spectrum inputs have a
-    power (log-mel: a mel energy) >= 1e-2, four decades above LOG_EPS;
-    and on every cell, kernel and plain version alike within the fp32
-    error bound of ``planes64`` of the float64 planes (next to the floor
-    the log amplifies the summation order, so the two fp32 versions may
-    differ there by more than any fixed tolerance).  Returns (scaled,
-    max |kernel - plain|, share of well-conditioned cells)."""
+def planes_metrics(torch, frames, nfft, got, want, sample_rate=0, n_mels=0, split=False):
+    """Kernel 1's planes ``got`` against its plain version's ``want`` and
+    the float64 planes of ``planes64``, as a dict.  ``scaled``: max
+    |got - want| / max |want| on the well-conditioned cells, those whose
+    four spectrum inputs have a power (log-mel: a mel energy) >= 1e-2,
+    four decades above LOG_EPS (``share`` of the cells); ``err``: max
+    |got - want| on all cells; ``scaled64`` and ``plain_scaled64``: the
+    scaled error of ``got`` and of ``want`` against float64; ``head`` and
+    ``plain_head``: the largest |error against float64| / the fp32 error
+    bound, on all cells (``split``: the kernel's bound has the term of a
+    3-pass TF32 split)."""
     from template_speech_recognition_tpu_torch.ops.dft import dft_matrices, mel_filterbank
+    from template_speech_recognition_tpu_torch.ops.frontend_kernel import planes64
 
     f = n_mels - 1 if n_mels else nfft // 2
     cos_m, sin_m = dft_matrices(frames.shape[1], nfft, frames.device)
@@ -310,18 +281,43 @@ def check_planes(torch, frames, nfft, got, want, name, sample_rate=0, n_mels=0):
     okp = power >= 1e-2
     okn = torch.cat([okp[1:], okp[-1:]])
     ok = okp[:, :f] & okp[:, 1 : f + 1] & okn[:, :f] & okn[:, 1 : f + 1]
-    diff = (got - want).abs()
-    scaled = float(diff[:, ok].max() / want.abs().max())
-    err = float(diff.max())
-    share = float(ok.float().mean())
-    check(share > 0.5, f"{name}: too few well-conditioned cells ({share})")
-    check(scaled <= 1e-5, f"{name}: scaled error {scaled} > 1e-5")
-    ref, bound = planes64(torch, frames, nfft, sample_rate, n_mels)
-    for label, v in (("kernel", got), ("plain", want)):
-        over = float(((v.double() - ref).abs() / bound).max())
-        check(over <= 1.0, f"{name}: {label} off the float64 planes by {over:.3g} x "
-                           "the fp32 error bound")
-    return scaled, err, share
+    ref, bound = planes64(frames, nfft, sample_rate, n_mels)
+    bound_k = planes64(frames, nfft, sample_rate, n_mels, split=True)[1] if split else bound
+    top = want.abs().max()
+    got64, want64 = got.double(), want.double()
+
+    def scaled(a, b):
+        return float((a - b).abs()[:, ok].max() / top) if bool(ok.any()) else 0.0
+
+    return dict(
+        scaled=scaled(got, want), err=float((got - want).abs().max()),
+        share=float(ok.double().mean()), scaled64=scaled(got64, ref),
+        plain_scaled64=scaled(want64, ref),
+        head=float(((got64 - ref).abs() / bound_k).max()),
+        plain_head=float(((want64 - ref).abs() / bound).max()),
+    )
+
+
+def check_planes(torch, frames, nfft, got, want, name, sample_rate=0, n_mels=0):
+    """Kernel 1 against its plain version (``planes_metrics``): scaled
+    error <= 1e-5 on the well-conditioned cells, and on every cell kernel
+    and plain version alike within the fp32 error bound of the float64
+    planes (next to the floor the log amplifies the summation order, so
+    the two fp32 versions may differ there by more than any fixed
+    tolerance).  Returns the metrics."""
+    m = planes_metrics(torch, frames, nfft, got, want, sample_rate, n_mels)
+    check(m["share"] > 0.5, f"{name}: too few well-conditioned cells ({m['share']})")
+    check(m["scaled"] <= 1e-5, f"{name}: scaled error {m['scaled']} > 1e-5")
+    for label, key in (("kernel", "head"), ("plain", "plain_head")):
+        check(m[key] <= 1.0, f"{name}: {label} off the float64 planes by {m[key]:.3g} x "
+                             "the fp32 error bound")
+    return m
+
+
+def float64_text(m) -> str:
+    """The float64 side of ``planes_metrics``, for a log line."""
+    return (f"against float64: kernel scaled {m['scaled64']:.3g}, {m['head']:.4g} of its "
+            f"fp32 error bound; plain {m['plain_scaled64']:.3g}, {m['plain_head']:.4g}")
 
 
 def check_terminals(torch, got, ref, name):
@@ -404,7 +400,8 @@ def correlation_bench(torch, kc, flat, wflat, cf, record, say):
     return x
 
 
-def small_shape_checks(torch, dev, audio, k1, k2, k3, k4, k5, kp, kd, k8, k9, kc, fp, fs):
+def small_shape_checks(torch, dev, audio, k1, k2, k3, k4, k5, kp, kd, k8, k9, kc, fp, fs,
+                       say):
     """Each kernel once at small ragged shapes (the CPU tests' sizes:
     nfft 256 -> F = 128, D = 1024, K = 128, L = 8 -> nfft 39, hop 32;
     the log-mel widths F = 39 and 63, D = 504), against its plain
@@ -509,10 +506,14 @@ def small_shape_checks(torch, dev, audio, k1, k2, k3, k4, k5, kp, kd, k8, k9, kc
     # audio frames: white noise puts deep cancellations into single DFT
     # bins, which the few-bin low mel filters pass on to the log.
     fr = audio[1000 : 1000 + 4 * 128 - 11]
+    worst = {}
     for nfft_s, nm in ((512, 40), (512, 64), (512, 129), (400, 0)):
-        check_planes(torch, fr, nfft_s, k1.edge_response_planes(fr, nfft_s, 16000, nm),
-                     k1.edge_response_planes_plain(fr, nfft_s, 16000, nm),
-                     f"frontend_planes (small, nfft {nfft_s}, n_mels {nm})", 16000, nm)
+        m = check_planes(torch, fr, nfft_s, k1.edge_response_planes(fr, nfft_s, 16000, nm),
+                         k1.edge_response_planes_plain(fr, nfft_s, 16000, nm),
+                         f"frontend_planes (small, nfft {nfft_s}, n_mels {nm})", 16000, nm)
+        worst = {k: max(v, worst.get(k, 0.0)) for k, v in m.items()}
+    say(f"frontend_planes at 4 small shapes: scaled error at most {worst['scaled']:.3g} "
+        f"(tolerance 1e-5); {float64_text(worst)}")
 
     # radix counting pass: ragged rows (N % 4 != 0: unaligned, key by
     # key), NC 3, 8, 16, masked keys, candidates in the digit's range
@@ -630,8 +631,8 @@ def mel_kernel_checks(torch, M, dev, wavs, nvalid, valid, frames2, bank_mel, rec
     def planes_row(n_mels):
         got = k1.edge_response_planes(frames2, nfft, sr, n_mels)
         ref = k1.edge_response_planes_plain(frames2, nfft, sr, n_mels)
-        scaled, err, share = check_planes(torch, frames2, nfft, got, ref,
-                                          f"frontend_planes (n_mels {n_mels})", sr, n_mels)
+        m = check_planes(torch, frames2, nfft, got, ref, f"frontend_planes (n_mels {n_mels})",
+                         sr, n_mels)
         fb = mel_filterbank(sr, nfft, n_mels, dev)
         _fbt, mr = k1._mel_on(sr, nfft, n_mels, str(dev))
         nnz = int((mr[:, 1] - mr[:, 0]).sum())
@@ -643,19 +644,21 @@ def mel_kernel_checks(torch, M, dev, wavs, nvalid, valid, frames2, bank_mel, rec
         nbytes = (n_rows * fl * 4 + 2 * fl * bins * 4 + fb.numel() * 4
                   + 4 * n_rows * (n_mels - 1) * 4)
         ops = 2 * 2 * n_rows * fl * bins + 2 * n_rows * nnz
-        say(f"frontend_planes (n_mels {n_mels}): scaled error {scaled:.3g} on {share:.3f} "
-            f"of the cells (tolerance 1e-5); the mel product over {nnz} nonzero filter "
-            f"weights of {fb.numel()}")
-        return got, err, times, nbytes, ops
+        say(f"frontend_planes (n_mels {n_mels}): scaled error {m['scaled']:.3g} on "
+            f"{m['share']:.3f} of the cells (tolerance 1e-5); {float64_text(m)}; the mel "
+            f"product over {nnz} nonzero filter weights of {fb.numel()}")
+        return got, m["err"], times, nbytes, ops
 
     pm, err7, times7, bytes7, ops7 = planes_row(nm)
     record(SimpleNamespace(NAME=k1.MEL_NAME, SOURCE=k1.SOURCE, REPLACES=k1.MEL_REPLACES),
-           err7, "scaled 1e-5; fp32 error bound", *times7, bytes7, ops7, FP32_FLOPS)
+           err7, "scaled 1e-5; fp32 error bound", *times7, bytes7, ops7, FP32_FLOPS, tf32=True)
     _p129, err1, times1, bytes1, ops1 = planes_row(129)
     b1, by1 = bound_ms(bytes1, ops1, FP32_FLOPS)
+    bt1, byt1 = bound_ms(bytes1, 3 * ops1, TF32_FLOPS)
     say(f"frontend_planes mel mode at n_mels 129 (TPU row 1's mel mode; the two-kernel "
         f"path): max_abs_err {err1:.6g} kernel {times1[0]:.4f} ms plain {times1[1]:.4f} ms "
-        f"library {times1[2]:.4f} ms bound {b1:.4f} ms ({by1})")
+        f"library {times1[2]:.4f} ms bound {b1:.4f} ms ({by1}; three TF32 passes "
+        f"{bt1:.4f} ms, {byt1})")
     del _p129
 
     # kernel 8 at every level's real candidates: the layered select of
@@ -909,27 +912,34 @@ def main() -> int:
     m = B * nblk
     rows = []
 
-    def record(mod, err, tol, ms, plain_ms, lib_ms, nbytes, ops, rate, shape=None):
+    def record(mod, err, tol, ms, plain_ms, lib_ms, nbytes, ops, rate, shape=None, tf32=False):
+        """One row of the kernels line.  ``tf32``: the kernel runs the
+        fp32 ``ops`` as three TF32 passes on the tensor cores; the row
+        also gives that bound (``tf32_bound_ms``), beside the fp32 one."""
         bms, by = bound_ms(nbytes, ops, rate)
         rows.append(dict(
             name=mod.NAME, route="cuda", source=mod.SOURCE, replaces=mod.REPLACES,
             launches=0, max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
             bound_ms=bms, bound_by=by, library_ms=lib_ms,
         ))
+        extra = ""
+        if tf32:
+            rows[-1]["tf32_bound_ms"], tby = bound_ms(nbytes, 3 * ops, TF32_FLOPS)
+            extra = f"; three TF32 passes {rows[-1]['tf32_bound_ms']:.4f} ms, {tby}"
         if shape is not None:
             rows[-1]["shape"] = shape
         say(f"{mod.NAME}{f' ({shape})' if shape else ''}: max_abs_err {err:.6g} "
             f"(tolerance {tol}) kernel {ms:.4f} ms "
             f"plain {plain_ms:.4f} ms library {lib_ms if lib_ms is None else round(lib_ms, 4)} "
-            f"ms bound {bms:.4f} ms ({by})")
+            f"ms bound {bms:.4f} ms ({by}{extra})")
 
     # kernel 1: response planes (tolerances: check_planes)
     planes = k1.edge_response_planes(frames2, fcfg.nfft)
     planes_ref = k1.edge_response_planes_plain(frames2, fcfg.nfft)
-    scaled, err1, share = check_planes(torch, frames2, fcfg.nfft, planes, planes_ref,
-                                       "frontend_planes")
-    say(f"frontend_planes: scaled error {scaled:.3g} on {share:.3f} of the cells "
-        "(tolerance 1e-5)")
+    m1 = check_planes(torch, frames2, fcfg.nfft, planes, planes_ref, "frontend_planes")
+    err1 = m1["err"]
+    say(f"frontend_planes: scaled error {m1['scaled']:.3g} on {m1['share']:.3f} of the cells "
+        f"(tolerance 1e-5); {float64_text(m1)}")
     cos_m, sin_m = dft_matrices(fl, fcfg.nfft, dev)
     cs = torch.cat([cos_m, sin_m], dim=1).contiguous()
     record(
@@ -938,7 +948,7 @@ def main() -> int:
         time_ms(torch, lambda: k1.edge_response_planes_plain(frames2, fcfg.nfft)),
         time_ms(torch, lambda: torch.matmul(frames2, cs)),
         n_rows * fl * 4 + 2 * fl * (f + 1) * 4 + 4 * n_rows * f * 4,
-        2 * 2 * n_rows * fl * (f + 1), FP32_FLOPS,
+        2 * 2 * n_rows * fl * (f + 1), FP32_FLOPS, tf32=True,
     )
 
     # kernel 2: select + binarize + spread; bitwise
@@ -962,6 +972,16 @@ def main() -> int:
         + valid.numel() * 4 + keys.numel() * 4,
         0, 1.0,
     )
+
+    # printed only: how many cells of the default scan's first batch (these
+    # 8 utterances) the kernels' map sets otherwise than the plain run's
+    # (the scans are held to their plain runs by their detections below)
+    map_k = fp.frontend_batch_flat(wavs, nvalid, fcfg).binary
+    map_p = fp.frontend_batch_flat(wavs, nvalid, fcfg, plain=True).binary
+    n_map_diff = int((map_k != map_p).sum())
+    say(f"default scan, first batch: {n_map_diff} of {map_k.numel()} binary-map cells "
+        f"({n_map_diff / map_k.numel():.3g}) differ from the plain run's (printed only)")
+    del map_k, map_p
 
     # kernel 3: block DFT; bf16 output -> one bf16 step (2^-7) of max|ref|
     bf16_tol = 2.0 ** -7
@@ -1155,7 +1175,8 @@ def main() -> int:
     mel_kernel_checks(torch, mods, dev, wavs, nvalid, valid, frames2, bank_mel, record, say)
     torch.cuda.empty_cache()
 
-    small_shape_checks(torch, dev, frames2, k1, k2, k3, k4, k5, kp, kd, k8, k9, kc, fp, fs)
+    small_shape_checks(torch, dev, frames2, k1, k2, k3, k4, k5, kp, kd, k8, k9, kc, fp, fs,
+                       say)
     say("small ragged shapes: all eleven kernels agree with their plain versions")
 
     # ---- the scan at full width ---------------------------------------

@@ -34,7 +34,17 @@ bins.  The mel product runs over each filter's nonzero bins only.
 What bounds it on the H100: fp32 operations.  ``2 * 2 * N * 400 * 257``
 flops (10.1 GFLOP at B=8, T_pad=3072) over 67 TFLOP/s of fp32 SIMT is
 0.15 ms; the bytes (frames in, planes out: 39 + 101 MB, or 39 + 25 MB
-at F = 63) take 0.04 ms or less.
+at F = 63) take 0.04 ms or less.  Three TF32 passes on the tensor cores
+would take 0.061 ms: ``probe_frontend_planes.py`` measures such a
+kernel (``split_tf32`` operands, ``wgmma`` fed by TMA) beside this one.
+It stays out of the port: it is 5x closer to float64 than the plain
+version, but the plain version's own cuBLAS GEMM is up to 1.4e-5
+(scaled) off float64 on small row counts, past the 1e-5 scaled check
+the kernel is held to against it.
+
+``planes64`` gives the planes in float64 with a bound on the error of
+any fp32 evaluation, which the kernel and the plain version are held to
+on the card.
 """
 
 from __future__ import annotations
@@ -46,10 +56,12 @@ import torch
 
 from template_speech_recognition_tpu_torch.ops import _cuda
 from template_speech_recognition_tpu_torch.ops.dft import (
+    LOG_EPS,
     _mel_np,
     dft_matrices,
     log_magnitude_spectrogram,
     log_mel_spectrogram,
+    mel_filterbank,
 )
 
 NAME = "frontend_planes"
@@ -70,6 +82,38 @@ def supported(nfft: int, n_mels: int = 0) -> bool:
     return 1 <= nfft // 2 <= MAX_DFT_WIDTH and (n_mels == 0 or n_mels >= 2)
 
 
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32 ``x`` -> (hi, lo), both TF32 values held in f32 (the low 13
+    mantissa bits zero): ``hi`` is ``x`` rounded to nearest TF32, ties
+    away from zero, and ``lo`` is ``x - hi`` rounded the same way, as
+    ``cvt.rna.tf32.f32`` does (the operands of the tensor-core kernel
+    in ``probe_frontend_planes_tf32.cu``), so |x - hi - lo| <= 2^-22
+    |x|."""
+
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        # adding half of the dropped range to the magnitude bits rounds
+        # half away from zero; the mask keeps sign, exponent and 10 bits
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    x = x.to(torch.float32)
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def _differences(spec: torch.Tensor, f: int) -> torch.Tensor:
+    """The four planes of a spectrogram [N, >= f + 1] against the next
+    row (row N - 1's next is itself): [4, N, f]."""
+    cur = spec
+    nxt = torch.cat([spec[1:], spec[-1:]])
+    return torch.stack([
+        nxt[:, :f] - cur[:, :f],                # d_time
+        cur[:, 1 : f + 1] - cur[:, :f],         # d_freq
+        nxt[:, 1 : f + 1] - cur[:, :f],         # d_diag
+        nxt[:, :f] - cur[:, 1 : f + 1],         # d_anti
+    ])
+
+
 def edge_response_planes_plain(
     frames: torch.Tensor,       # [N, frame_length] f32 windowed frames
     nfft: int,
@@ -81,19 +125,46 @@ def edge_response_planes_plain(
     relative error without bound in near-zero power bins."""
     frames = frames.to(torch.float32)
     if n_mels:
-        spec = log_mel_spectrogram(frames, nfft, sample_rate, n_mels)
+        return _differences(log_mel_spectrogram(frames, nfft, sample_rate, n_mels), n_mels - 1)
+    return _differences(log_magnitude_spectrogram(frames, nfft), nfft // 2)
+
+
+def planes64(frames, nfft, sample_rate=0, n_mels=0, split=False):
+    """The planes in float64, and for every cell a bound on the error of
+    an fp32 evaluation in any summation order: (ref, bound), each [4, N,
+    F].  Each DFT sum of n terms is off by at most n * u * sum|terms| (u
+    = 2^-24), which carries through the power, the mel sum, the log and
+    the difference (plus one rounding each, and 4 ulps for logf).
+    ``split`` adds the 3-pass TF32 split's own error to each DFT sum,
+    3 * 2^-22 * sum|terms| (``split_tf32``: three TF32 products a
+    term)."""
+    u, eps = 2.0 ** -24, float(LOG_EPS)
+    n = frames.shape[1]
+    cos_m, sin_m = (m.double() for m in dft_matrices(n, nfft, frames.device))
+    x = frames.double()
+    re, im = x @ cos_m, x @ sin_m
+    per_term = n * u + (3 * 2.0 ** -22 if split else 0.0)
+    dre, dim = per_term * (x.abs() @ cos_m.abs()), per_term * (x.abs() @ sin_m.abs())
+    p = re * re + im * im
+    dp = 2 * re.abs() * dre + 2 * im.abs() * dim + dre ** 2 + dim ** 2 + 3 * u * p
+    half = 1.0
+    if n_mels:
+        fb = mel_filterbank(sample_rate, nfft, n_mels, frames.device).double()
+        dp = dp @ fb + fb.shape[0] * u * (p @ fb)
+        p = p @ fb
         f = n_mels - 1
     else:
-        spec = log_magnitude_spectrogram(frames, nfft)
+        half = 0.5
         f = nfft // 2
-    cur = spec
-    nxt = torch.cat([spec[1:], spec[-1:]])
-    return torch.stack([
-        nxt[:, :f] - cur[:, :f],                # d_time
-        cur[:, 1 : f + 1] - cur[:, :f],         # d_freq
-        nxt[:, 1 : f + 1] - cur[:, :f],         # d_diag
-        nxt[:, :f] - cur[:, 1 : f + 1],         # d_anti
-    ])
+    rel = (dp + u * (p + eps)) / (p + eps)
+    ds = torch.where(rel < 0.5, -torch.log1p(-rel.clamp(max=0.5)), torch.full_like(rel, 1e3))
+    spec = half * torch.log(p + eps)
+    ds = half * ds + 4 * u * spec.abs()
+    ref = _differences(spec, f)
+    dnx = torch.cat([ds[1:], ds[-1:]])
+    bound = torch.stack([dnx[:, :f] + ds[:, :f], ds[:, 1 : f + 1] + ds[:, :f],
+                         dnx[:, 1 : f + 1] + ds[:, :f], dnx[:, :f] + ds[:, 1 : f + 1]])
+    return ref, bound + u * ref.abs()
 
 
 @functools.lru_cache(maxsize=8)

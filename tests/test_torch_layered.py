@@ -7,7 +7,11 @@ Kernel 1 in both modes, kernel 8 (radix counting pass) and kernel 9
 Inputs come from numpy with fixed seeds.  Tolerances: the planes as in
 ``test_torch_frontend.py`` (scaled error 1e-5 on well-conditioned
 cells, the reference's fused-vs-unfused class elsewhere); counts, order
-statistics and binary maps bitwise.
+statistics and binary maps bitwise.  The arithmetic of kernel 1's
+tensor-core redesign (``probe_frontend_planes_tf32.cu``), a 3-pass TF32
+split, is emulated here in fp32 (``split_tf32`` and three f32 matmuls)
+and held to the float64 bound of ``planes64`` and to the reference at
+the plain version's tolerances.
 """
 
 from __future__ import annotations
@@ -305,3 +309,105 @@ def test_features_wrappers_match_reference(use_mel):
     for i, v in enumerate(fm.valid_frames.numpy()):
         assert np.mean(got[i, :v] == want[i, :v]) >= 0.999
         assert not got[i, v:].any()
+
+
+# ---- the tensor-core redesign's 3-pass TF32 split, emulated in fp32 -------
+
+
+@pytest.mark.parametrize("kind", ["normal", "tiny", "ties"])
+def test_split_tf32_rounds_to_nearest(kind):
+    """``split_tf32``: hi and lo are TF32 values (the low 13 mantissa
+    bits zero); hi is x rounded to nearest, ties away from zero; and
+    |x - hi - lo| <= 2^-22 |x|, or <= 2^-137 (half TF32's step among
+    subnormals) where lo falls below the normal range.  A seeded sweep
+    over 60 decades, subnormals, exact ties and signed zeros."""
+    rng = np.random.default_rng(11)
+    n = 20000
+    if kind == "normal":
+        x = rng.standard_normal(n) * 10.0 ** rng.uniform(-30, 30, n)
+    elif kind == "tiny":                     # subnormals, and normals whose lo is subnormal
+        x = rng.standard_normal(n) * 2.0 ** rng.uniform(-149, -96, n)
+    else:                                    # the 13 dropped bits exactly half
+        bits = (rng.integers(0x00800000, 0x7F000000, n) & ~0x1FFF) | 0x1000
+        x = bits.astype(np.int32).view(np.float32) * rng.choice([-1.0, 1.0], n)
+        x[::100], x[1::100] = 0.0, -0.0
+    x = x.astype(np.float32)
+    hi, lo = k1.split_tf32(torch.from_numpy(x))
+    for part in (hi, lo):
+        assert part.dtype == torch.float32
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    x64, hi64, lo64 = x.astype(np.float64), hi.numpy().astype(np.float64), lo.numpy().astype(
+        np.float64)
+    half_step = np.spacing(np.abs(x)).astype(np.float64) * 2.0 ** 12
+    assert np.all(np.abs(x64 - hi64) <= half_step)
+    assert np.all(np.abs(x64 - hi64 - lo64) <= np.maximum(2.0 ** -22 * np.abs(x64), 2.0 ** -137))
+    if kind == "ties":
+        nz = x != 0
+        assert np.all(np.abs(hi64[nz]) > np.abs(x64[nz]))
+        assert np.all(np.signbit(hi.numpy()) == np.signbit(x))
+
+
+def _split_planes(frames, nfft, sample_rate=0, n_mels=0):
+    """The TF32 kernel's arithmetic in fp32 on the CPU: each DFT sum as
+    hi.lo + lo.hi + hi.hi of ``split_tf32`` operands (three f32
+    matmuls), then the plain version's power, log(-mel) and differences."""
+    x = torch.from_numpy(frames)
+    xh, xl = k1.split_tf32(x)
+    cos_m, sin_m = tdft.dft_matrices(frames.shape[1], nfft)
+
+    def dft(basis):
+        bh, bl = k1.split_tf32(basis)
+        return (xh @ bl + xl @ bh) + xh @ bh
+
+    re, im = dft(cos_m), dft(sin_m)
+    p = re * re + im * im
+    eps = float(tdft.LOG_EPS)
+    if n_mels:
+        spec = torch.log(p @ tdft.mel_filterbank(sample_rate, nfft, n_mels) + eps)
+        return k1._differences(spec, n_mels - 1)
+    return k1._differences(0.5 * torch.log(p + eps), nfft // 2)
+
+
+SPLIT_SHAPES = [(256, 0), (512, 40), (512, 64)]
+
+
+@pytest.mark.parametrize("nfft,n_mels", SPLIT_SHAPES)
+@pytest.mark.parametrize("source", ["audio", "noise"])
+def test_split_planes_within_float64_bound(source, nfft, n_mels):
+    """The 3-product planes within ``planes64``'s bound with the split's
+    term on every cell (the row past the last too), and the plain
+    version within the bound without it; real-audio frames, and white
+    noise, whose deep cancellations put single DFT bins near the floor."""
+    cfg = FrontendConfig(nfft=nfft, use_mel=n_mels > 0, n_mels=n_mels or 64)
+    if source == "audio":
+        frames = _frames(cfg)
+    else:
+        frames = np.random.default_rng(12).standard_normal((250, 400)).astype(np.float32)
+    ft = torch.from_numpy(frames)
+    for planes, split in ((_split_planes(frames, nfft, cfg.sample_rate, n_mels), True),
+                          (k1.edge_response_planes_plain(ft, nfft, cfg.sample_rate, n_mels),
+                           False)):
+        ref, bound = k1.planes64(ft, nfft, cfg.sample_rate, n_mels, split=split)
+        assert planes.shape == ref.shape
+        assert float(((planes.double() - ref).abs() / bound).max()) <= 1.0
+
+
+@pytest.mark.parametrize("nfft,n_mels", SPLIT_SHAPES)
+def test_split_planes_match_reference(nfft, n_mels):
+    """The 3-product planes against the reference's four-output kernel in
+    interpret mode, at the tolerances of the plain version's tests:
+    scaled error 1e-5 on well-conditioned cells, the reference's
+    fused-vs-unfused class elsewhere."""
+    cfg = FrontendConfig(nfft=nfft, use_mel=n_mels > 0, n_mels=n_mels or 64)
+    frames = _frames(cfg)
+    got = _split_planes(frames, nfft, cfg.sample_rate, n_mels).numpy()
+    want = np.stack([np.asarray(p) for p in edge_response_planes_pallas(
+        jnp.asarray(frames), nfft, interpret=True, sample_rate=cfg.sample_rate,
+        n_mels=n_mels,
+    )])
+    assert got.shape == want.shape
+    got, want = got[:, :-1], want[:, :-1]                 # last row: garbage
+    ok = _well_conditioned(frames, cfg, n_mels)
+    assert ok.mean() > 0.5
+    assert np.max(np.abs(got - want)[:, ok]) / np.max(np.abs(want)) <= 1e-5
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-3)
