@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. builds the eleven CUDA kernels of the port from the ten sources in
+1. builds the eleven CUDA kernels of the port from the eleven sources in
    ``template_speech_recognition_tpu_torch/csrc`` (one nvcc per source,
    all started together);
 2. calls each kernel's wrapper on the card at the shapes the scan gives
@@ -13,7 +13,8 @@
    PyTorch version on the same inputs, with the tolerance stated beside
    each check; times kernel, plain version and one library call with
    CUDA events (median of 10 after 2 warm-ups; the two short DTW
-   kernels and their library call over loops of 100 launches) and
+   kernels, kernels 1 and 5 and their library calls over loops of 100
+   launches, so the wrapper's host time is not timed) and
    computes each kernel's bound (the larger of the least bytes / 3.35
    TB/s and operations / the peak rate of their type).  The log-mel
    scan's kernels (n_mels 64: F = 63, D = 504) follow: kernel 1 in mel
@@ -35,21 +36,34 @@
    1, LLR windows past the map's end, F = 39 and 63, unaligned radix
    rows, correlation at K = 3, D = 40 and 504, L = 1, 9, 48 and T, the
    TMA + wgmma bin matmul at m = 1, 63, 64, 65, 96 x D = 8, 40, 504 x
-   K = 8, 136 x bins = 1, 3, the 4-D input, and a misaligned base
-   pointer that must raise) and holds it against its plain version.
-   Kernel 1 is also held, everywhere, to the float64 planes within an
-   fp32 error bound; how far kernel and plain version are from float64
-   is printed, and kernel 1's rows of the kernels line carry the bound
-   of three TF32 passes on the tensor cores (``tf32_bound_ms``) beside
-   the fp32 one.  Printed only: the share of the default scan's
-   first-batch map cells that differ from its plain run's;
+   K = 8, 136 x bins = 1, 3, the 4-D input, the TMA + wgmma iDFT at
+   2 bins = 40, 160 x hop = 32, 128, 224 x K = 8, 136, 1024 x m = 1,
+   3, 192 and at hop 30, and misaligned base pointers that must raise)
+   and holds it against its plain version.  Kernel 1 (the DFT as three
+   TF32 passes on the tensor cores) is held at 34 shapes (1 to 24,576
+   rows, nfft 256 to 4096, frame lengths 398 and 400, n_mels 0 to 484)
+   to the float64 planes: within 1e-5 scaled on the well-conditioned
+   cells and within its error bound on every cell, the plain version
+   within its fp32 bound (the kernel-to-plain scaled error is printed,
+   not held: the plain GEMM is itself up to 1.4e-5 off float64 at a few
+   hundred rows); its rows of the kernels line carry the bound of three
+   TF32 passes (``tf32_bound_ms``) beside the fp32 one.
+   ``FrontendConfig(nfft=1024)`` runs through both frontend paths to one
+   map that differs from the plain run's in at most 1e-3 of its cells
+   (the frontend's parity contract), and so do the maps of the whole
+   corpus in both frontend modes;
 3. drives the scan itself, ``detect_corpus_stream``, at full width over
    19 utterances of 30 s (two batches of 8 and a tail of 3 padded to
    4, whose padding row has no valid frame), with every launch count
    set to 0 just before and read just after, and holds its detections
-   against the same scan on the plain versions: first the default scan
-   (bf16 spectra), then the scan with DTW rescoring (config 4,
-   verify-the-winner) on int8 template spectra (config 5);
+   against the same scan on the plain versions (>= 99% matched peaks
+   with the same template, scores within their class): first the
+   default scan (bf16 spectra), then the scan with DTW rescoring
+   (config 4, verify-the-winner) on int8 template spectra (config 5).
+   A map cell that ties its threshold may flip between two fp32
+   evaluations of the planes and moves every score whose window holds
+   it by a whole LLR term: such matches, at most ``MAX_EXEMPT`` of
+   them, are left out of the score class;
 4. runs the exhaustive DTW rescore (``DTWConfig.top_r = 0``: every peak
    against all 1024 templates) on one batch of 8 against the plain
    versions;
@@ -82,6 +96,7 @@ imports nothing of JAX.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -99,8 +114,8 @@ FP32_FLOPS = 67e12         # fp32 outside the tensor cores
 BF16_FLOPS = 989e12        # bf16 tensor cores, dense
 TF32_FLOPS = 495e12        # TF32 tensor cores, dense
 INT8_OPS = 1979e12         # int8 tensor cores, dense
-STEMS = ("frontend_planes", "select_binspread", "fft_gemm", "fft_binmm", "banded_dtw",
-         "pair_llr", "fft_binmm_int8", "radix_counts", "binspread", "correlation")
+STEMS = ("frontend_planes", "select_binspread", "fft_gemm", "fft_binmm", "fft_idft",
+         "banded_dtw", "pair_llr", "fft_binmm_int8", "radix_counts", "binspread", "correlation")
 # kernels each scan must launch (launch-count names)
 SCAN_KERNELS = ("frontend_planes", "select_binspread", "fft_block_dft", "fft_binmm",
                 "fft_idft")
@@ -258,66 +273,34 @@ class Corpus:
         return out
 
 
-def planes_metrics(torch, frames, nfft, got, want, sample_rate=0, n_mels=0, split=False):
-    """Kernel 1's planes ``got`` against its plain version's ``want`` and
-    the float64 planes of ``planes64``, as a dict.  ``scaled``: max
-    |got - want| / max |want| on the well-conditioned cells, those whose
-    four spectrum inputs have a power (log-mel: a mel energy) >= 1e-2,
-    four decades above LOG_EPS (``share`` of the cells); ``err``: max
-    |got - want| on all cells; ``scaled64`` and ``plain_scaled64``: the
-    scaled error of ``got`` and of ``want`` against float64; ``head`` and
-    ``plain_head``: the largest |error against float64| / the fp32 error
-    bound, on all cells (``split``: the kernel's bound has the term of a
-    3-pass TF32 split)."""
-    from template_speech_recognition_tpu_torch.ops.dft import dft_matrices, mel_filterbank
-    from template_speech_recognition_tpu_torch.ops.frontend_kernel import planes64
+def check_planes(torch, frames, nfft, got, want, name, sample_rate=0, n_mels=0,
+                 min_share=0.5):
+    """Kernel 1 (``frontend_kernel.planes_metrics``): on the
+    well-conditioned cells its planes within 1e-5 (scaled by max|plain|)
+    of the float64 planes; on every cell the kernel within its error
+    bound of float64 (fp32 summation plus the 3-pass TF32 split) and the
+    plain version within its fp32 bound.  The plain version is the
+    function's definition, but not an accuracy yardstick at 1e-5: its
+    cuBLAS GEMM is itself up to 1.4e-5 (scaled) off float64 at a few
+    hundred rows, so the kernel-to-plain scaled error is printed only.
+    Returns the metrics."""
+    from template_speech_recognition_tpu_torch.ops.frontend_kernel import planes_metrics
 
-    f = n_mels - 1 if n_mels else nfft // 2
-    cos_m, sin_m = dft_matrices(frames.shape[1], nfft, frames.device)
-    x64 = frames.double()
-    power = (x64 @ cos_m.double()) ** 2 + (x64 @ sin_m.double()) ** 2
-    if n_mels:
-        power = power @ mel_filterbank(sample_rate, nfft, n_mels, frames.device).double()
-    okp = power >= 1e-2
-    okn = torch.cat([okp[1:], okp[-1:]])
-    ok = okp[:, :f] & okp[:, 1 : f + 1] & okn[:, :f] & okn[:, 1 : f + 1]
-    ref, bound = planes64(frames, nfft, sample_rate, n_mels)
-    bound_k = planes64(frames, nfft, sample_rate, n_mels, split=True)[1] if split else bound
-    top = want.abs().max()
-    got64, want64 = got.double(), want.double()
-
-    def scaled(a, b):
-        return float((a - b).abs()[:, ok].max() / top) if bool(ok.any()) else 0.0
-
-    return dict(
-        scaled=scaled(got, want), err=float((got - want).abs().max()),
-        share=float(ok.double().mean()), scaled64=scaled(got64, ref),
-        plain_scaled64=scaled(want64, ref),
-        head=float(((got64 - ref).abs() / bound_k).max()),
-        plain_head=float(((want64 - ref).abs() / bound).max()),
-    )
-
-
-def check_planes(torch, frames, nfft, got, want, name, sample_rate=0, n_mels=0):
-    """Kernel 1 against its plain version (``planes_metrics``): scaled
-    error <= 1e-5 on the well-conditioned cells, and on every cell kernel
-    and plain version alike within the fp32 error bound of the float64
-    planes (next to the floor the log amplifies the summation order, so
-    the two fp32 versions may differ there by more than any fixed
-    tolerance).  Returns the metrics."""
-    m = planes_metrics(torch, frames, nfft, got, want, sample_rate, n_mels)
-    check(m["share"] > 0.5, f"{name}: too few well-conditioned cells ({m['share']})")
-    check(m["scaled"] <= 1e-5, f"{name}: scaled error {m['scaled']} > 1e-5")
+    m = planes_metrics(frames, nfft, got, want, sample_rate, n_mels, split=True)
+    check(m["share"] > min_share, f"{name}: too few well-conditioned cells ({m['share']})")
+    check(m["scaled64"] <= 1e-5, f"{name}: scaled error against float64 {m['scaled64']} > 1e-5")
     for label, key in (("kernel", "head"), ("plain", "plain_head")):
         check(m[key] <= 1.0, f"{name}: {label} off the float64 planes by {m[key]:.3g} x "
-                             "the fp32 error bound")
+                             "its error bound")
     return m
 
 
 def float64_text(m) -> str:
-    """The float64 side of ``planes_metrics``, for a log line."""
-    return (f"against float64: kernel scaled {m['scaled64']:.3g}, {m['head']:.4g} of its "
-            f"fp32 error bound; plain {m['plain_scaled64']:.3g}, {m['plain_head']:.4g}")
+    """The errors of ``planes_metrics``, for a log line."""
+    return (f"against float64: kernel scaled {m['scaled64']:.3g} (tolerance 1e-5), "
+            f"{m['head']:.4g} of its error bound; plain {m['plain_scaled64']:.3g}, "
+            f"{m['plain_head']:.4g} of its fp32 bound; kernel vs plain scaled "
+            f"{m['scaled']:.3g} (printed only) on {m['share']:.3f} of the cells")
 
 
 def check_terminals(torch, got, ref, name):
@@ -342,11 +325,43 @@ def band_cells(torch, length, m, lens, band) -> int:
                             <= band * lm1)).sum())
 
 
-def match_detections(got, want):
+def map_flips(torch, fp, stream_scan, corpus, fcfg, batch, dev):
+    """The binary-map cells a scan's kernels set otherwise than its plain
+    run, batched as the scan batches the corpus -> ({utterance: sorted
+    frames holding such a cell}, cells that differ, cells).  A cell whose
+    edge response ties its quantile threshold within float tolerance may
+    flip between two fp32 evaluations of the planes (the frontend's
+    parity contract: at most 1e-3 of the cells)."""
+    n_cells = [0, 0]
+
+    def compute(wavs, vs, _marks):
+        mk = fp.frontend_batch_flat(wavs, vs, fcfg).binary
+        mp = fp.frontend_batch_flat(wavs, vs, fcfg, plain=True).binary
+        per_frame = (mk != mp).reshape(mk.shape[0], mk.shape[1], -1).sum(-1).float()
+        n_cells[0] += int(per_frame.sum())
+        n_cells[1] += mk.numel()
+        t = torch.arange(per_frame.shape[1], device=dev).expand_as(per_frame)
+        return torch.where(per_frame > 0, per_frame, float("-inf")), t, torch.zeros_like(t)
+
+    d = stream_scan(corpus, fcfg, batch, compute, 1, dev).detections
+    frames = {int(u): np.sort(d.times[d.utterance_ids == u]) for u in np.unique(d.utterance_ids)}
+    return frames, n_cells[0], n_cells[1]
+
+
+# the most of a scan's same-template matches that a flipped map cell may
+# exempt from its score class (``match_detections``)
+MAX_EXEMPT = 0.1
+
+
+def match_detections(got, want, flips=None, window=0):
     """Peaks of two scans matched on (utterance, time) -> (matched share
     of the larger set, same-template share of the matched, max |score
-    difference| over same-template matches, max |score| of ``want``)."""
-    matched = same = 0
+    difference| over same-template matches, max |score| of ``want``,
+    exempt share of the same-template matches).  With ``flips``
+    (``map_flips``' frames), a match whose score window [t, t + window)
+    holds a frame where the two maps differ is exempt from the score
+    difference: a flipped cell moves such a score by a whole LLR term."""
+    matched = same = exempt = 0
     diff = 0.0
     for ui in np.unique(np.concatenate([got.utterance_ids, want.utterance_ids])):
         a = {t: (k, s) for s, t, k in zip(got.scores[got.utterance_ids == ui].tolist(),
@@ -355,13 +370,37 @@ def match_detections(got, want):
         b = {t: (k, s) for s, t, k in zip(want.scores[want.utterance_ids == ui].tolist(),
                                           want.times[want.utterance_ids == ui].tolist(),
                                           want.template_ids[want.utterance_ids == ui].tolist())}
+        fl = (flips or {}).get(int(ui), np.zeros(0, np.int64))
         for t in set(a) & set(b):
             matched += 1
             if a[t][0] == b[t][0]:
                 same += 1
-                diff = max(diff, abs(a[t][1] - b[t][1]))
+                i = np.searchsorted(fl, t)
+                if i < len(fl) and fl[i] < t + window:
+                    exempt += 1
+                else:
+                    diff = max(diff, abs(a[t][1] - b[t][1]))
     frac = matched / max(len(got.scores), len(want.scores), 1)
-    return frac, same / max(matched, 1), diff, float(np.max(np.abs(want.scores)))
+    return (frac, same / max(matched, 1), diff, float(np.max(np.abs(want.scores))),
+            exempt / max(same, 1))
+
+
+def check_scan_scores(dk, dp, flips, window, tol, label, say):
+    """A scan's detections against its plain run's: >= 99% matched peaks
+    with the same template, and the scores of the same-template matches
+    within ``tol`` x max|score|, but those whose window holds a flipped
+    map cell, which may be at most ``MAX_EXEMPT`` of them."""
+    check(len(dk.scores) > 0 and bool(np.isfinite(dk.scores).all()), f"{label}: no detections")
+    frac, id_frac, diff, top, ex = match_detections(dk, dp, flips, window)
+    say(f"{label} vs plain scan: {len(dk.scores)} vs {len(dp.scores)} detections, "
+        f"{frac:.4f} matched peaks, {id_frac:.4f} same template on matched; score max diff "
+        f"{diff:.6g} = {diff / top:.3g} of max|score| {top:.6g} (tolerance {tol:g}) on the "
+        f"matches whose {window}-frame window holds no flipped map cell; {ex:.4f} of them "
+        f"exempt (limit {MAX_EXEMPT})")
+    check(frac >= 0.99, f"{label}: matched peaks {frac} < 0.99")
+    check(id_frac >= 0.99, f"{label}: template ids agree on {id_frac} < 0.99")
+    check(ex <= MAX_EXEMPT, f"{label}: {ex} of the matches exempt > {MAX_EXEMPT}")
+    check(diff <= tol * top, f"{label}: scores differ by {diff} > {tol:g} * {top}")
 
 
 def correlation_bench(torch, kc, flat, wflat, cf, record, say):
@@ -406,6 +445,7 @@ def small_shape_checks(torch, dev, audio, k1, k2, k3, k4, k5, kp, kd, k8, k9, kc
     nfft 256 -> F = 128, D = 1024, K = 128, L = 8 -> nfft 39, hop 32;
     the log-mel widths F = 39 and 63, D = 504), against its plain
     version on the same inputs."""
+    from template_speech_recognition_tpu_torch.ops import _cuda
     from template_speech_recognition_tpu_torch.ops.edges import order_keys32
 
     rng = np.random.default_rng(SEED + 1)
@@ -480,6 +520,30 @@ def small_shape_checks(torch, dev, audio, k1, k2, k3, k4, k5, kp, kd, k8, k9, kc
     close(k5.fft_idft(ycat, imat, c, nblk), k5.fft_idft_plain(ycat, imat, c, nblk),
           1e-5, "fft_idft")
 
+    # the TMA + wgmma iDFT at ragged shapes: 2 bins short of a 64-row
+    # stage (40) and past two (160); hop short of a 64-row warpgroup tile
+    # (32), at the bench's 128 and at 224 (the last 128-row tile ends
+    # 32 rows short: the 3-D store map must clip there, not write into
+    # block j + 1's rows); 30 (not a multiple of 8: imat padded); K short
+    # of a 128-template tile (8, 136) and the bench's 1024; m of 1, 3
+    # and 192 blocks; a ycat base 2 bytes off, which TMA cannot take
+    for tb in (40, 160):
+        for hp in (32, 128, 224):
+            for kk in (8, 136, 1024):
+                for mm, nb in ((1, 1), (3, 3), (192, 24)):
+                    yc, im_, cc = rnd(tb, mm * kk), rnd(tb, hp), torch.randn(kk, device=dev)
+                    close(k5.fft_idft(yc, im_, cc, nb), k5.fft_idft_plain(yc, im_, cc, nb),
+                          1e-5, f"fft_idft (2 bins {tb}, hop {hp}, K {kk}, m {mm})")
+    yc, im_, cc = rnd(40, 3 * 136), rnd(40, 30), torch.randn(136, device=dev)
+    close(k5.fft_idft(yc, im_, cc, 3), k5.fft_idft_plain(yc, im_, cc, 3), 1e-5,
+          "fft_idft (hop 30)")
+    off = rnd(40 * 3 * 136 + 8)[1 : 1 + 40 * 3 * 136].view(40, 3 * 136)
+    try:
+        k5.fft_idft(off, rnd(40, 32), cc, 3)
+        check(False, "fft_idft took a base pointer that is not 16-byte aligned")
+    except ValueError:
+        pass
+
     # int8 bin matmul, bitwise: K, 2m and 2D not multiples of the tile
     for shape in ((3, 50, 48), (3, 2, 25, 48)):
         xq_r = torch.randint(-127, 128, shape, dtype=torch.int8, device=dev)
@@ -500,20 +564,48 @@ def small_shape_checks(torch, dev, audio, k1, k2, k3, k4, k5, kp, kd, k8, k9, kc
                                k4.fft_binmm_int8_plain(xq_r, xq_i, w28, sc8))),
               f"fft_binmm_int8 (small, {shape}): not bitwise")
 
-    # kernel 1, log-mel mode: F = 39, 63 and 128 (n_mels 129), over a row
-    # count that is not a multiple of the 32-row tile; and a DFT width
-    # that is not a multiple of 32 (nfft 400 -> 200 columns).  Windowed
-    # audio frames: white noise puts deep cancellations into single DFT
-    # bins, which the few-bin low mel filters pass on to the log.
+    # kernel 1 at 30 small shapes of windowed audio frames (white noise
+    # puts deep cancellations into single DFT bins, which the few-bin low
+    # mel filters pass on to the log): log-mel F = 39, 63 and 128 (n_mels
+    # 129) and a DFT width that is not a multiple of the 128-column tile
+    # (nfft 400), over 501 rows (not a multiple of the 63 written rows of
+    # a tile); 1, 63, 64, 65 and 511 rows; nfft 1024, 1984 and 4096 (4,
+    # 8 and 16 column tiles); a frame length of 398 (padded to 400); 501 rows at
+    # four more offsets into the batch; and the most mel filters the
+    # kernel's shared memory takes (``MAX_MELS``, at nfft 1984)
     fr = audio[1000 : 1000 + 4 * 128 - 11]
+    fr398 = fr[:, :398].contiguous()
+    cases = [(fr, 512, 40), (fr, 512, 64), (fr, 512, 129), (fr, 400, 0)]
+    cases += [(audio[1000 : 1000 + n], 512, nm) for n in (1, 63, 64, 65, 511) for nm in (0, 64)]
+    cases += [(fr, nf, nm) for nf in (1024, 1984) for nm in (0, 129)] + [(fr, 4096, 0)]
+    cases += [(fr398, 512, 0), (fr398, 512, 64)]
+    cases += [(audio[o : o + 501], nf, 0) for o in (3000, 9000, 15000, 21000) for nf in (400, 512)]
     worst = {}
-    for nfft_s, nm in ((512, 40), (512, 64), (512, 129), (400, 0)):
-        m = check_planes(torch, fr, nfft_s, k1.edge_response_planes(fr, nfft_s, 16000, nm),
-                         k1.edge_response_planes_plain(fr, nfft_s, 16000, nm),
-                         f"frontend_planes (small, nfft {nfft_s}, n_mels {nm})", 16000, nm)
+    for x, nfft_s, nm in cases + [(fr, 1984, k1.MAX_MELS)]:
+        label = f"frontend_planes (N {x.shape[0]}, FL {x.shape[1]}, nfft {nfft_s}, n_mels {nm})"
+        m = check_planes(torch, x, nfft_s, k1.edge_response_planes(x, nfft_s, 16000, nm),
+                         k1.edge_response_planes_plain(x, nfft_s, 16000, nm), label, 16000, nm,
+                         min_share=0.0 if nm == k1.MAX_MELS else 0.5)
+        say(f"{label}: {float64_text(m)}")
         worst = {k: max(v, worst.get(k, 0.0)) for k, v in m.items()}
-    say(f"frontend_planes at 4 small shapes: scaled error at most {worst['scaled']:.3g} "
-        f"(tolerance 1e-5); {float64_text(worst)}")
+    say(f"frontend_planes at {len(cases) + 1} small shapes, the most of each: "
+        f"{float64_text(worst)}")
+    # the shared memory a launch asks for, and the mel count past which
+    # the kernel refuses (supported() says no)
+    smem_fn = _cuda.load("frontend_planes").tsr_frontend_planes_smem
+    smem_fn.argtypes, smem_fn.restype = [ctypes.c_int], ctypes.c_int
+    smem = {nm: smem_fn(nm) for nm in (0, 64, 129, k1.MAX_MELS, k1.MAX_MELS + 1)}
+    check(smem[k1.MAX_MELS] <= 232448 < smem[k1.MAX_MELS + 1],
+          f"frontend_planes: MAX_MELS disagrees with the kernel's shared memory {smem}")
+    check(not k1.supported(512, k1.MAX_MELS + 1), "supported() admits too many mel filters")
+    say(f"frontend_planes dynamic shared memory by n_mels: {smem}")
+    off = fr.reshape(-1)[: 3 * 400 + 1].clone()[1:].view(3, 400)
+    check(off.data_ptr() % 16 == 4, "the misaligned view is not misaligned")
+    try:
+        k1.edge_response_planes(off, 512)
+        check(False, "frontend_planes took a base pointer that is not 16-byte aligned")
+    except ValueError:
+        pass
 
     # radix counting pass: ragged rows (N % 4 != 0: unaligned, key by
     # key), NC 3, 8, 16, masked keys, candidates in the digit's range
@@ -604,6 +696,33 @@ def take_launches(rows, names, counts, shape=None):
             row["launches"] = int(counts.get(row["name"], 0))
 
 
+def wide_frontend_check(torch, C, fp, _cuda, wavs, nvalid, say):
+    """``FrontendConfig(nfft=1024)`` (512 DFT columns, past the 480 at
+    which the port's earlier fp32 SIMT kernel 1 no longer launched)
+    through both frontend paths on the first two utterances: the two
+    paths give one map bit for bit, and it agrees with the plain run's
+    map on >= 99.9% of its cells (the frontend's parity contract:
+    cells whose response ties the threshold within float tolerance may
+    flip)."""
+    wcfg = C.FrontendConfig(nfft=1024)
+    check(fp._fused_ok(wcfg), "nfft 1024 must take the two-kernel path")
+    w2, n2 = wavs[:2], nvalid[:2]
+    plain = fp.frontend_batch_flat(w2, n2, wcfg, plain=True).binary
+    _cuda.reset_launches()
+    fused = fp.frontend_batch_flat(w2, n2, wcfg, layered=False).binary
+    layered = fp.frontend_batch_flat(w2, n2, wcfg, layered=True).binary
+    counts = _cuda.launch_counts()
+    check(counts.get("frontend_planes", 0) == 2 and counts.get("select_binspread", 0) == 1
+          and counts.get("radix_counts", 0) > 0 and counts.get("binspread", 0) == 1,
+          f"nfft 1024 frontends: launches {counts}")
+    check(bool(torch.equal(fused, layered)), "nfft 1024: the layered and two-kernel maps differ")
+    share = int((fused != plain).sum()) / plain.numel()
+    check(share <= 1e-3, f"nfft 1024: {share} of the map cells differ from the plain run's")
+    say(f"FrontendConfig(nfft=1024), 2 utterances, both frontend paths: one map bit for bit "
+        f"({int(fused.sum())} set cells of {fused.numel()}), {share:.3g} of its cells unlike "
+        f"the plain run's (tolerance 1e-3); launches {counts}")
+
+
 def mel_kernel_checks(torch, M, dev, wavs, nvalid, valid, frames2, bank_mel, record, say):
     """The log-mel scan's kernels at its shapes (B = 8, T_pad = 3072,
     n_mels 64 -> F = 63, D = 504), each against its plain version."""
@@ -637,21 +756,23 @@ def mel_kernel_checks(torch, M, dev, wavs, nvalid, valid, frames2, bank_mel, rec
         _fbt, mr = k1._mel_on(sr, nfft, n_mels, str(dev))
         nnz = int((mr[:, 1] - mr[:, 0]).sum())
         times = (
-            time_ms(torch, lambda: k1.edge_response_planes(frames2, nfft, sr, n_mels)),
+            time_ms(torch, lambda: k1.edge_response_planes(frames2, nfft, sr, n_mels), loop=100),
             time_ms(torch, lambda: k1.edge_response_planes_plain(frames2, nfft, sr, n_mels)),
-            time_ms(torch, lambda: (torch.matmul(frames2, cs), torch.matmul(pw, fb))),
+            time_ms(torch, lambda: (torch.matmul(frames2, cs), torch.matmul(pw, fb)), loop=100),
         )
+        single = time_ms(torch, lambda: k1.edge_response_planes(frames2, nfft, sr, n_mels))
         nbytes = (n_rows * fl * 4 + 2 * fl * bins * 4 + fb.numel() * 4
                   + 4 * n_rows * (n_mels - 1) * 4)
         ops = 2 * 2 * n_rows * fl * bins + 2 * n_rows * nnz
-        say(f"frontend_planes (n_mels {n_mels}): scaled error {m['scaled']:.3g} on "
-            f"{m['share']:.3f} of the cells (tolerance 1e-5); {float64_text(m)}; the mel "
-            f"product over {nnz} nonzero filter weights of {fb.numel()}")
+        say(f"frontend_planes (n_mels {n_mels}): {float64_text(m)}; the mel "
+            f"product over {nnz} nonzero filter weights of {fb.numel()}; one launch between "
+            f"the events (with the wrapper's host time) {single:.4f} ms")
         return got, m["err"], times, nbytes, ops
 
     pm, err7, times7, bytes7, ops7 = planes_row(nm)
     record(SimpleNamespace(NAME=k1.MEL_NAME, SOURCE=k1.SOURCE, REPLACES=k1.MEL_REPLACES),
-           err7, "scaled 1e-5; fp32 error bound", *times7, bytes7, ops7, FP32_FLOPS, tf32=True)
+           err7, "scaled 1e-5 of float64; error bounds", *times7, bytes7, ops7, FP32_FLOPS,
+           tf32=True)
     _p129, err1, times1, bytes1, ops1 = planes_row(129)
     b1, by1 = bound_ms(bytes1, ops1, FP32_FLOPS)
     bt1, byt1 = bound_ms(bytes1, 3 * ops1, TF32_FLOPS)
@@ -851,6 +972,7 @@ def main() -> int:
     from template_speech_recognition_tpu_torch.scan import (
         bucket_length,
         detect_corpus_stream,
+        stream_scan,
     )
 
     card = card_line()
@@ -938,15 +1060,16 @@ def main() -> int:
     planes_ref = k1.edge_response_planes_plain(frames2, fcfg.nfft)
     m1 = check_planes(torch, frames2, fcfg.nfft, planes, planes_ref, "frontend_planes")
     err1 = m1["err"]
-    say(f"frontend_planes: scaled error {m1['scaled']:.3g} on {m1['share']:.3f} of the cells "
-        f"(tolerance 1e-5); {float64_text(m1)}")
+    say(f"frontend_planes: {float64_text(m1)}; one launch between the events (with the "
+        f"wrapper's host time) "
+        f"{time_ms(torch, lambda: k1.edge_response_planes(frames2, fcfg.nfft)):.4f} ms")
     cos_m, sin_m = dft_matrices(fl, fcfg.nfft, dev)
     cs = torch.cat([cos_m, sin_m], dim=1).contiguous()
     record(
-        k1, err1, "scaled 1e-5; fp32 error bound",
-        time_ms(torch, lambda: k1.edge_response_planes(frames2, fcfg.nfft)),
+        k1, err1, "scaled 1e-5 of float64; error bounds",
+        time_ms(torch, lambda: k1.edge_response_planes(frames2, fcfg.nfft), loop=100),
         time_ms(torch, lambda: k1.edge_response_planes_plain(frames2, fcfg.nfft)),
-        time_ms(torch, lambda: torch.matmul(frames2, cs)),
+        time_ms(torch, lambda: torch.matmul(frames2, cs), loop=100),
         n_rows * fl * 4 + 2 * fl * (f + 1) * 4 + 4 * n_rows * f * 4,
         2 * 2 * n_rows * fl * (f + 1), FP32_FLOPS, tf32=True,
     )
@@ -972,16 +1095,6 @@ def main() -> int:
         + valid.numel() * 4 + keys.numel() * 4,
         0, 1.0,
     )
-
-    # printed only: how many cells of the default scan's first batch (these
-    # 8 utterances) the kernels' map sets otherwise than the plain run's
-    # (the scans are held to their plain runs by their detections below)
-    map_k = fp.frontend_batch_flat(wavs, nvalid, fcfg).binary
-    map_p = fp.frontend_batch_flat(wavs, nvalid, fcfg, plain=True).binary
-    n_map_diff = int((map_k != map_p).sum())
-    say(f"default scan, first batch: {n_map_diff} of {map_k.numel()} binary-map cells "
-        f"({n_map_diff / map_k.numel():.3g}) differ from the plain run's (printed only)")
-    del map_k, map_p
 
     # kernel 3: block DFT; bf16 output -> one bf16 step (2^-7) of max|ref|
     bf16_tol = 2.0 ** -7
@@ -1036,14 +1149,31 @@ def main() -> int:
     ref5 = float(sc_ref.abs().max())
     check(err5 <= 1e-5 * ref5, f"fft_idft: {err5} > 1e-5 * {ref5}")
     imat_t = imat.t().contiguous()
+    # the yardstick: the iDFT GEMM with fp32 output (the kernel's bytes
+    # written, without the reassembly and + c), where this PyTorch has
+    # that overload of mm; else the bf16-output matmul (half the bytes)
+    try:
+        torch.mm(imat_t, y2, out_dtype=torch.float32)
+        lib5, lib5_call = (lambda: torch.mm(imat_t, y2, out_dtype=torch.float32),
+                           "torch.mm, fp32 out")
+    except (TypeError, RuntimeError):
+        lib5, lib5_call = (lambda: torch.matmul(imat_t, y2),
+                           "torch.matmul, bf16 out, half the bytes written")
     record(
         k5, err5, "1e-5 * max|ref|",
-        time_ms(torch, lambda: k5.fft_idft(y2, imat, fbank.c, nblk)),
+        time_ms(torch, lambda: k5.fft_idft(y2, imat, fbank.c, nblk), loop=100),
         time_ms(torch, lambda: k5.fft_idft_plain(y2, imat, fbank.c, nblk)),
-        time_ms(torch, lambda: torch.matmul(imat_t, y2)),
+        time_ms(torch, lib5, loop=100),
         y2.numel() * 2 + imat.numel() * 2 + K * 4 + m * hop * K * 4,
         2 * (2 * bins) * hop * m * K, BF16_FLOPS,
     )
+    rows[-1]["library_call"] = lib5_call
+    single5 = time_ms(torch, lambda: k5.fft_idft(y2, imat, fbank.c, nblk))
+    say(f"fft_idft: one launch between the events (with the wrapper's host time) "
+        f"{single5:.4f} ms; library call {lib5_call}; kernel "
+        f"{rows[-1]['bound_ms'] / rows[-1]['ms']:.3f} "
+        f"of its bound ({(y2.numel() * 2 + m * hop * K * 4) / rows[-1]['ms'] / 1e6:.1f} GB/s of "
+        f"ycat in and scores out)")
 
     # whole scorer: bf16 kernels vs the f32 plain path on the same map
     s_k = fs.fft_sliding_scores(flat.reshape(B, t_pad, d), fbank, time_major=True)
@@ -1178,6 +1308,18 @@ def main() -> int:
     small_shape_checks(torch, dev, frames2, k1, k2, k3, k4, k5, kp, kd, k8, k9, kc, fp, fs,
                        say)
     say("small ragged shapes: all eleven kernels agree with their plain versions")
+    wide_frontend_check(torch, C, fp, _cuda, wavs, nvalid, say)
+
+    # the map cells the kernels set otherwise than the plain run over the
+    # corpus, in both frontend modes (the scans' score classes exempt the
+    # windows that hold one)
+    flips = {}
+    for label, fc in (("default", fcfg), ("log-mel", C.FrontendConfig(use_mel=True))):
+        flips[label], n_diff, n_all = map_flips(torch, fp, stream_scan, corpus, fc, B, dev)
+        say(f"{label} frontend over the corpus: {n_diff} of {n_all} binary-map cells "
+            f"({n_diff / n_all:.3g}) differ from the plain run's (tolerance 1e-3), in "
+            f"{sum(len(v) for v in flips[label].values())} frames")
+        check(n_diff <= 1e-3 * n_all, f"{label} frontend: the maps differ in too many cells")
 
     # ---- the scan at full width ---------------------------------------
     scan_cfg = C.PipelineConfig(detect=C.DetectConfig(batch_size=B))
@@ -1218,7 +1360,7 @@ def main() -> int:
     ref = detect_corpus_stream(corpus, bank, scan_cfg, target_phone="aa", plain=True)
     dk, dp = res.detections, ref.detections
     check(len(dk.scores) > 0 and bool(np.isfinite(dk.scores).all()), "no detections")
-    frac, id_frac, _diff, _top = match_detections(dk, dp)
+    frac, id_frac, *_ = match_detections(dk, dp)
     say(f"scan vs plain scan: {len(dk.scores)} vs {len(dp.scores)} detections, "
         f"{frac:.4f} matched peaks, {id_frac:.4f} same template on matched")
     check(frac >= 0.99, f"matched peaks {frac} < 0.99")
@@ -1254,15 +1396,8 @@ def main() -> int:
         f"time per batch ({ctr['batches']:.0f} batches): {stages} (CUDA events); "
         f"launches {counts}")
     ref = detect_corpus_stream(corpus, bank, dtw_cfg, target_phone="aa", plain=True)
-    dk, dp = res.detections, ref.detections
-    check(len(dk.scores) > 0 and bool(np.isfinite(dk.scores).all()), "no DTW detections")
-    frac, id_frac, diff, top = match_detections(dk, dp)
-    say(f"DTW + int8 scan vs plain scan: {len(dk.scores)} vs {len(dp.scores)} detections, "
-        f"{frac:.4f} matched peaks, {id_frac:.4f} same template on matched, DTW score "
-        f"max diff {diff:.6g} = {diff / top:.3g} of max|score| {top:.6g} (tolerance 1e-4)")
-    check(frac >= 0.99, f"DTW + int8: matched peaks {frac} < 0.99")
-    check(id_frac >= 0.99, f"DTW + int8: template ids agree on {id_frac} < 0.99")
-    check(diff <= 1e-4 * top, f"DTW + int8: scores differ by {diff} > 1e-4 * {top}")
+    check_scan_scores(res.detections, ref.detections, flips["default"], m_seg, 1e-4,
+                      "DTW + int8 scan", say)
     del res, ref
 
     # ---- exhaustive rescoring (top_r = 0) on one batch -----------------
@@ -1278,16 +1413,10 @@ def main() -> int:
     check(counts.get("banded_dtw", 0) > 0, "exhaustive rescore did not launch banded_dtw")
     ctr = res.counters
     ref = detect_corpus_stream(head, bank, ex_cfg, target_phone="aa", plain=True)
-    dk, dp = res.detections, ref.detections
-    check(len(dk.scores) > 0 and bool(np.isfinite(dk.scores).all()), "no exhaustive detections")
-    frac, id_frac, diff, top = match_detections(dk, dp)
     say(f"exhaustive rescore (top_r 0, {B} x {top_k} peaks x {K} templates): {wall:.3f} s, "
-        f"dtw stage {ctr.get('device_ms_dtw', 0.0):.3f} ms (CUDA events), launches {counts}; "
-        f"vs plain: {frac:.4f} matched peaks, {id_frac:.4f} same template, score max diff "
-        f"{diff:.6g} = {diff / top:.3g} of max|score| (tolerance 1e-4)")
-    check(frac >= 0.99, f"exhaustive: matched peaks {frac} < 0.99")
-    check(id_frac >= 0.99, f"exhaustive: (time, id) agree on {id_frac} < 0.99")
-    check(diff <= 1e-4 * top, f"exhaustive: scores differ by {diff} > 1e-4 * {top}")
+        f"dtw stage {ctr.get('device_ms_dtw', 0.0):.3f} ms (CUDA events), launches {counts}")
+    check_scan_scores(res.detections, ref.detections, flips["default"], m_seg, 1e-4,
+                      "exhaustive rescore", say)
     del res, ref
 
     # ---- the log-mel scan at full width, then with DTW + int8 ----------
@@ -1330,16 +1459,10 @@ def main() -> int:
                         lambda: detect_corpus_stream(corpus, bank_mel, mcfg, target_phone="aa"),
                         bank_build(bank_mel), ctr)
         ref = detect_corpus_stream(corpus, bank_mel, mcfg, target_phone="aa", plain=True)
-        dk, dp = res.detections, ref.detections
-        check(len(dk.scores) > 0 and bool(np.isfinite(dk.scores).all()),
-              f"{label}: no detections")
-        frac, id_frac, diff, top = match_detections(dk, dp)
-        say(f"{label} vs plain scan: {len(dk.scores)} vs {len(dp.scores)} detections, "
-            f"{frac:.4f} matched peaks, {id_frac:.4f} same template on matched, score max "
-            f"diff {diff:.6g} = {diff / top:.3g} of max|score| {top:.6g} (tolerance 4e-3)")
-        check(frac >= 0.99, f"{label}: matched peaks {frac} < 0.99")
-        check(id_frac >= 0.99, f"{label}: template ids agree on {id_frac} < 0.99")
-        check(diff <= 4e-3 * top, f"{label}: scores differ by {diff} > 4e-3 * {top}")
+        # the sliding score at t reads frames [t, t + L); the DTW rescore
+        # [t, t + L + band)
+        check_scan_scores(res.detections, ref.detections, flips["log-mel"],
+                          m_seg if dkw else L, 4e-3, label, say)
         del res, ref
 
     # ---- the backend-selectable scorer: the correlation kernel's path ---
@@ -1389,7 +1512,7 @@ def main() -> int:
     check(len(dk.scores) > 0 and bool(np.isfinite(dk.scores).all()), "no conv detections")
     # printed only: the bf16 FFT scorer moves borderline NMS peaks, so
     # this measures the fft scan's error, not the conv's
-    frac, id_frac, diff, top = match_detections(dk, fft_dets)
+    frac, id_frac, diff, top, _ = match_detections(dk, fft_dets)
     say(f"conv scan: {ctr['utterances']:.0f} utterances, {ctr['audio_seconds']:.1f} audio-s, "
         f"{ctr['audio_s_per_s']:.1f} audio-s/s (scan loop {ctr['time_scan_s']:.4f} s; with the "
         f"bank build {wall:.4f} s); mean device time per batch ({ctr['batches']:.0f} "

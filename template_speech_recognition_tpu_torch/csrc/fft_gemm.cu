@@ -1,16 +1,17 @@
-// Kernels 3 and 5 of the overlap-save FFT scorer: one tiled GEMM routine.
+// Kernel 3 of the overlap-save FFT scorer, the block DFT, on a tiled
+// mma.sync GEMM routine.
 //
 //   3. fft_block_dft  replaces ops/fft_dft_pallas.py   fft_block_dft_pallas
-//   5. fft_idft       replaces ops/fft_idft_pallas.py  fft_idft_pallas
-//   (paths under template_speech_recognition_tpu/)
+//   (path under template_speech_recognition_tpu/)
 //
-// (Kernel 4, the per-bin bank matmul, runs on its own TMA + wgmma
-// pipeline in fft_binmm.cu.)
+// (Kernel 4, the per-bin bank matmul, and kernel 5, the inverse-DFT
+// epilogue, run on TMA + wgmma pipelines of their own in fft_binmm.cu
+// and fft_idft.cu.)
 //
-// Both are batched GEMMs  C[z] (M x N) = A[z] (M x K) . B[z] (K x N)
-// with bf16 operands and fp32 accumulation; they differ only in how the
-// operands are gathered and how the results are scattered.  gemm_kernel
-// is written once over an Ops policy that supplies:
+// A batched GEMM  C[z] (M x N) = A[z] (M x K) . B[z] (K x N) with bf16
+// operands and fp32 accumulation.  gemm_kernel is written over an Ops
+// policy that supplies how the operands are gathered and the results
+// scattered:
 //
 //   load_a(z, m, k0) -> 8 bf16 of A[z][m][k0 .. k0+7]  (zeros outside)
 //   load_b(z, k, n0) -> 8 bf16 of B[z][k][n0 .. n0+7]  (zeros outside)
@@ -186,32 +187,6 @@ struct DftOps {
   }
 };
 
-// ---- 5. inverse-DFT epilogue -----------------------------------------
-// z = block j = b * nblk + i;  A[tau][r] = imat[r][tau] (imat: [2*bins, hop]);
-// B[r][k] = ycat[r, j*K + k];  C[tau][k] + c[k] -> out[j*hop + tau, k]
-// in fp32, i.e. time-major [B, nblk*hop, K].
-struct IdftOps {
-  const bf16* ycat; const bf16* imat; const float* c; float* out;
-  int hop, mtot, K;
-  __device__ uint4 load_a(int, int m, int k0, int M, int Kd) const {
-    bf16 v[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int k = k0 + j;
-      v[j] = (m < M && k < Kd) ? imat[(size_t)k * hop + m] : __float2bfloat16_rn(0.f);
-    }
-    return pack8(v);
-  }
-  __device__ uint4 load_b(int z, int k, int n0, int Kd, int N) const {
-    if (k >= Kd || n0 >= N) return zero4();
-    return *reinterpret_cast<const uint4*>(ycat + (size_t)k * mtot * K + (size_t)z * K + n0);
-  }
-  __device__ void store(int z, int m, int n, float c0, float c1) const {
-    *reinterpret_cast<float2*>(out + ((size_t)z * hop + m) * K + n) =
-        make_float2(c0 + c[n], c1 + c[n + 1]);
-  }
-};
-
 template <class Ops>
 int launch(const Ops& ops, int M, int N, int K, int batch, void* stream) {
   const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, batch);
@@ -233,13 +208,4 @@ extern "C" int tsr_fft_block_dft(const void* x, const void* g, void* xr, void* x
   DftOps ops{static_cast<const bf16*>(x), static_cast<const bf16*>(g),
              static_cast<bf16*>(xr), static_cast<bf16*>(xi), B, T, D, hop, nblk, bins};
   return launch(ops, 2 * bins, D, nfft, B * nblk, stream);
-}
-
-// ycat [2*bins, m*K] bf16, imat [2*bins, hop] bf16, c [K] f32
-// -> out [m*hop, K] f32.  K % 8 == 0.
-extern "C" int tsr_fft_idft(const void* ycat, const void* imat, const void* c, void* out,
-                            int two_bins, int hop, int m, int K, void* stream) {
-  IdftOps ops{static_cast<const bf16*>(ycat), static_cast<const bf16*>(imat),
-              static_cast<const float*>(c), static_cast<float*>(out), hop, m, K};
-  return launch(ops, hop, K, two_bins, m, stream);
 }

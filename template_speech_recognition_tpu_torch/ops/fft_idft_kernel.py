@@ -7,10 +7,16 @@ Replaces ``template_speech_recognition_tpu/ops/fft_idft_pallas.py``
 in fp32: the iDFT GEMM, the blocks -> time reassembly and the offset
 add in one pass, output ``[B, nblk*hop, K]`` (time-major).
 
-CUDA design (``csrc/fft_gemm.cu``, ``IdftOps``): one GEMM per block j,
-M = hop, N = K, K = 2*bins, on the shared mma.sync tile routine; the
-store adds ``c`` and writes row ``j*hop + tau`` directly, so the
-reassembly costs nothing.
+CUDA design (``csrc/fft_idft.cu``): persistent blocks walk work items
+of one block j x 128 rows of hop x 128 templates; a producer warp
+streams imat and ycat, both as they lie (MN-major operands of
+``wgmma``), through a 4-stage TMA ring, and two consumer warpgroups of
+64 rows each run m64n128k16 ``wgmma``s; the epilogue adds ``c``, stages
+the tile in shared memory and stores it with TMA through a 3-D map
+over the output viewed as ``[m, hop, K]``, so a tile past hop or K is
+clipped at block j's end and the reassembly costs nothing.  TMA needs
+16-byte rows: K % 8 == 0, and imat is padded with zero columns to a
+multiple of 8 where hop is not one (rows past hop are not stored).
 
 What bounds it on the H100: bytes.  ycat in once and the fp32 scores
 out once (63 + 101 MB at m=192, K=1024, bins=80, hop=128) take
@@ -24,7 +30,7 @@ import torch
 from template_speech_recognition_tpu_torch.ops import _cuda
 
 NAME = "fft_idft"
-SOURCE = "template_speech_recognition_tpu_torch/csrc/fft_gemm.cu"
+SOURCE = "template_speech_recognition_tpu_torch/csrc/fft_idft.cu"
 REPLACES = "template_speech_recognition_tpu/ops/fft_idft_pallas.py:94"
 
 
@@ -60,12 +66,17 @@ def fft_idft(ycat, imat, c, nblk: int):
     two_bins, hop, k, m, b = _shapes(ycat, imat, c, nblk)
     if k % 8:
         raise ValueError(f"K={k} must be a multiple of 8")
+    hop_a = -(-hop // 8) * 8
+    if hop_a != hop:
+        imat = torch.nn.functional.pad(imat, (0, hop_a - hop))
+    if ycat.data_ptr() % 16 or imat.data_ptr() % 16:
+        raise ValueError("ycat and imat must start on a 16-byte boundary (TMA)")
     out = torch.empty((b, nblk * hop, k), dtype=torch.float32, device=ycat.device)
-    lib = _cuda.load("fft_gemm")
-    fn = _cuda.declare(lib, "tsr_fft_idft", 4, 4)
+    lib = _cuda.load("fft_idft")
+    fn = _cuda.declare(lib, "tsr_fft_idft", 4, 5)
     err = fn(
         _cuda.ptr(ycat), _cuda.ptr(imat), _cuda.ptr(c), _cuda.ptr(out),
-        two_bins, hop, m, k, _cuda.stream_ptr(ycat.device),
+        two_bins, hop, hop_a, m, k, _cuda.stream_ptr(ycat.device),
     )
     _cuda.check(lib, err, NAME)
     _cuda.count_launch(NAME)

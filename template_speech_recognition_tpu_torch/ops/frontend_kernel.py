@@ -22,29 +22,36 @@ da), written plane-major ``[4, N, F]``.  The last row's next row is
 clamped (row ``N - 1`` itself): garbage by contract, as on the TPU --
 callers mask rows ``>= valid``.
 
-CUDA design (``csrc/frontend_planes.cu``): one block per 32 frame rows
-plus one halo row; each of nfft // 2 threads owns one DFT column for
-all 33 rows (66 fp32 accumulators in registers) and one extra warp
-computes the Nyquist column.  The spectrogram tile (in mel mode: the
-power of all bins, then the mel tile) stays in shared memory and only
-the planes reach device memory.  The DFT and the mel product are true
-fp32 (SIMT FMA), never TF32: the log amplifies error in near-zero power
-bins.  The mel product runs over each filter's nonzero bins only.
+CUDA design (``csrc/frontend_planes.cu``): the DFT on the tensor
+cores as a 3-pass TF32 split (hi.lo + lo.hi + hi.hi, the dropped lo.lo
+under 2^-22 of a term), ``wgmma`` fed by a TMA ring, one producer warp
+and two consumer warpgroups, persistent blocks walking work items of 64
+frame rows x 128 DFT columns (63 rows written: row tiles overlap by the
+"next" row).  The basis is split once per (frame length, nfft, device)
+and cached K-major ``[6, bins, FL4]`` (cos-hi, cos-lo, -sin-hi, -sin-lo,
+cos, -sin); the frames are split in registers.  Each k8 step starts a
+fresh tensor-core sum that is added round-to-nearest to the running
+one, since ``wgmma`` cuts its f32 sums.  The power forms in registers,
+the spectrum (in mel mode the power, then the mel sums over each
+filter's nonzero bins, fp32 SIMT) stays in shared memory, and only the
+planes reach device memory.  A frame length that is not a multiple of
+4 is padded with zero samples (a TMA row is a multiple of 16 bytes);
+otherwise the frames must start on a 16-byte boundary.
 
-What bounds it on the H100: fp32 operations.  ``2 * 2 * N * 400 * 257``
-flops (10.1 GFLOP at B=8, T_pad=3072) over 67 TFLOP/s of fp32 SIMT is
-0.15 ms; the bytes (frames in, planes out: 39 + 101 MB, or 39 + 25 MB
-at F = 63) take 0.04 ms or less.  Three TF32 passes on the tensor cores
-would take 0.061 ms: ``probe_frontend_planes.py`` measures such a
-kernel (``split_tf32`` operands, ``wgmma`` fed by TMA) beside this one.
-It stays out of the port: it is 5x closer to float64 than the plain
-version, but the plain version's own cuBLAS GEMM is up to 1.4e-5
-(scaled) off float64 on small row counts, past the 1e-5 scaled check
-the kernel is held to against it.
+What bounds it on the H100: operations.  ``2 * 2 * N * 400 * 257``
+flops (10.1 GFLOP at B=8, T_pad=3072) take 0.15 ms at 67 TFLOP/s of
+fp32 SIMT and 0.061 ms as three TF32 passes at 495 TFLOP/s; the bytes
+(frames in, planes out: 39 + 101 MB, or 39 + 25 MB at F = 63) take
+0.04 ms or less.
 
 ``planes64`` gives the planes in float64 with a bound on the error of
-any fp32 evaluation, which the kernel and the plain version are held to
-on the card.
+any fp32 evaluation (with ``split``, of the 3-pass split), and
+``planes_metrics`` the errors the kernel and the plain version are held
+to on the card: the kernel within 1e-5 (scaled) of the float64 planes
+on the well-conditioned cells, both within their error bounds on every
+cell.  The plain version's own fp32 GEMM is up to 1.4e-5 (scaled) off
+float64 at a few hundred rows, so it is the function's definition, not
+the kernel's yardstick of accuracy.
 """
 
 from __future__ import annotations
@@ -72,23 +79,24 @@ REPLACES = "template_speech_recognition_tpu/ops/frontend_pallas.py:251"
 MEL_NAME = "frontend_planes_mel"
 MEL_REPLACES = "template_speech_recognition_tpu/ops/frontend_pallas.py:209"
 
-# DFT columns (nfft // 2) rounded up to a warp, plus the Nyquist warp,
-# must fit one block of 1024 threads
-MAX_DFT_WIDTH = 992
+# The mel sums [64, n_mels] share the 227 KB of shared memory with a
+# ring of at least two 36 KB stages and the [64, 129] spectrum tile
+# (``smem_bytes`` in the source): 484 filters at most.
+MAX_MELS = 484
 
 
 def supported(nfft: int, n_mels: int = 0) -> bool:
-    """Shapes the CUDA kernel takes: any F, a DFT width of at most 992."""
-    return 1 <= nfft // 2 <= MAX_DFT_WIDTH and (n_mels == 0 or n_mels >= 2)
+    """Shapes the CUDA kernel takes: any DFT width, and 0 or 2..484
+    mel filters."""
+    return nfft // 2 >= 1 and (n_mels == 0 or 2 <= n_mels <= MAX_MELS)
 
 
 def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """f32 ``x`` -> (hi, lo), both TF32 values held in f32 (the low 13
     mantissa bits zero): ``hi`` is ``x`` rounded to nearest TF32, ties
     away from zero, and ``lo`` is ``x - hi`` rounded the same way, as
-    ``cvt.rna.tf32.f32`` does (the operands of the tensor-core kernel
-    in ``probe_frontend_planes_tf32.cu``), so |x - hi - lo| <= 2^-22
-    |x|."""
+    ``cvt.rna.tf32.f32`` does (the kernel's operands), so |x - hi -
+    lo| <= 2^-22 |x|."""
 
     def rna(v):
         bits = v.contiguous().view(torch.int32)
@@ -167,10 +175,54 @@ def planes64(frames, nfft, sample_rate=0, n_mels=0, split=False):
     return ref, bound + u * ref.abs()
 
 
+def planes_metrics(frames, nfft, got, want, sample_rate=0, n_mels=0, split=False):
+    """Planes ``got`` (the kernel's, or any fp32 evaluation) against the
+    plain version's ``want`` and the float64 planes of ``planes64``, as
+    a dict.  ``scaled64`` and ``plain_scaled64``: max |error against
+    float64| / max |want| of ``got`` and of ``want`` on the
+    well-conditioned cells, those whose four spectrum inputs have a
+    power (log-mel: a mel energy) >= 1e-2, four decades above LOG_EPS
+    (``share`` of the cells); ``scaled``: the same of ``got`` against
+    ``want``; ``err``: max |got - want| on all cells; ``head`` and
+    ``plain_head``: the largest |error against float64| / the fp32
+    error bound, on all cells (``split``: ``got``'s bound has the term
+    of the 3-pass TF32 split)."""
+    f = n_mels - 1 if n_mels else nfft // 2
+    cos_m, sin_m = dft_matrices(frames.shape[1], nfft, frames.device)
+    x64 = frames.double()
+    power = (x64 @ cos_m.double()) ** 2 + (x64 @ sin_m.double()) ** 2
+    if n_mels:
+        power = power @ mel_filterbank(sample_rate, nfft, n_mels, frames.device).double()
+    okp = power >= 1e-2
+    okn = torch.cat([okp[1:], okp[-1:]])
+    ok = okp[:, :f] & okp[:, 1 : f + 1] & okn[:, :f] & okn[:, 1 : f + 1]
+    ref, bound = planes64(frames, nfft, sample_rate, n_mels)
+    bound_k = planes64(frames, nfft, sample_rate, n_mels, split=True)[1] if split else bound
+    top = want.abs().max()
+    got64, want64 = got.double(), want.double()
+
+    def scaled(a, b):
+        return float((a - b).abs()[:, ok].max() / top) if bool(ok.any()) else 0.0
+
+    return dict(
+        scaled=scaled(got64, want64), err=float((got - want).abs().max()),
+        share=float(ok.double().mean()), scaled64=scaled(got64, ref),
+        plain_scaled64=scaled(want64, ref),
+        head=float(((got64 - ref).abs() / bound_k).max()),
+        plain_head=float(((want64 - ref).abs() / bound).max()),
+    )
+
+
 @functools.lru_cache(maxsize=8)
-def _dft_on(frame_length: int, nfft: int, device: str):
+def _basis_on(frame_length: int, nfft: int, device: str) -> torch.Tensor:
+    """The kernel's DFT basis, K-major [6, bins, FL4] f32 (FL4 = the
+    frame length rounded up to 4, zero columns past it): cos-hi, cos-lo,
+    -sin-hi, -sin-lo (``split_tf32``), cos, -sin."""
     cos_m, sin_m = dft_matrices(frame_length, nfft, device)
-    return cos_m.contiguous(), sin_m.contiguous()
+    fl4 = -(-frame_length // 4) * 4
+    ct = torch.nn.functional.pad(cos_m.t(), (0, fl4 - frame_length))
+    st = torch.nn.functional.pad(sin_m.t(), (0, fl4 - frame_length))
+    return torch.stack([*split_tf32(ct), *split_tf32(st), ct, st]).contiguous()
 
 
 @functools.lru_cache(maxsize=8)
@@ -201,25 +253,28 @@ def edge_response_planes(
     _cuda.require(frames, "frames", torch.float32, 2)
     if not supported(nfft, n_mels):
         raise ValueError(
-            f"nfft={nfft}, n_mels={n_mels}: the kernel takes 1 <= nfft//2 <= "
-            f"{MAX_DFT_WIDTH} and n_mels 0 or >= 2"
+            f"nfft={nfft}, n_mels={n_mels}: the kernel takes nfft >= 2 and n_mels 0 "
+            f"or 2..{MAX_MELS}"
         )
     n, fl = frames.shape
-    w = nfft // 2
     dev = str(frames.device)
-    cos_m, sin_m = _dft_on(fl, nfft, dev)
+    basis = _basis_on(fl, nfft, dev)
+    fl4 = basis.shape[2]
+    if fl4 != fl:
+        frames = torch.nn.functional.pad(frames, (0, fl4 - fl))
+    elif frames.data_ptr() % 16:
+        raise ValueError("frames must start on a 16-byte boundary (TMA)")
     fbt = mrange = None
-    f = w
+    f = nfft // 2
     if n_mels:
         fbt, mrange = _mel_on(sample_rate, nfft, n_mels, dev)
         f = n_mels - 1
     out = torch.empty((4, n, f), dtype=torch.float32, device=frames.device)
     lib = _cuda.load("frontend_planes")
-    fn = _cuda.declare(lib, "tsr_frontend_planes", 6, 4)
+    fn = _cuda.declare(lib, "tsr_frontend_planes", 5, 4)
     err = fn(
-        _cuda.ptr(frames), _cuda.ptr(cos_m), _cuda.ptr(sin_m), _cuda.ptr(fbt),
-        _cuda.ptr(mrange), _cuda.ptr(out), n, fl, w, n_mels,
-        _cuda.stream_ptr(frames.device),
+        _cuda.ptr(frames), _cuda.ptr(basis), _cuda.ptr(fbt), _cuda.ptr(mrange),
+        _cuda.ptr(out), n, fl4, nfft // 2, n_mels, _cuda.stream_ptr(frames.device),
     )
     _cuda.check(lib, err, NAME)
     _cuda.count_launch(MEL_NAME if n_mels else NAME)

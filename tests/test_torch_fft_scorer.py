@@ -164,6 +164,25 @@ def test_idft_matches_pallas(problem):
     _close(got.numpy(), want)
 
 
+@pytest.mark.parametrize("two_bins,hop,k,m", [(40, 224, 8, 1), (40, 32, 136, 1),
+                                               (40, 224, 136, 3), (160, 32, 8, 3)])
+def test_idft_plain_matches_pallas_ragged(two_bins, hop, k, m):
+    """The plain iDFT (the card kernel's twin) against the reference at
+    the card's ragged shapes: hop 224 (not a multiple of the 128-row
+    tile), hop 32 (under one 64-row warpgroup tile), 2 bins 40 (under one
+    64-row stage), K 8 and 136 (not multiples of the 128-template tile),
+    one block and three."""
+    rng = np.random.default_rng(10 + hop + k + m)
+    ycat = rng.standard_normal((two_bins, m * k)).astype(np.float32)
+    imat = rng.standard_normal((two_bins, hop)).astype(np.float32)
+    c = rng.standard_normal((k,)).astype(np.float32)
+    want = fft_idft_pallas(jnp.asarray(ycat), jnp.asarray(imat), jnp.asarray(c), m,
+                           interpret=True)
+    got = fft_idft(torch.from_numpy(ycat), torch.from_numpy(imat), torch.from_numpy(c), m)
+    assert tuple(got.shape) == (1, m * hop, k)
+    _close(got.numpy(), want)
+
+
 @pytest.mark.parametrize("time_major,trim", [(False, True), (True, True),
                                              (True, False)])
 def test_fft_sliding_scores_match_reference(problem, time_major, trim):

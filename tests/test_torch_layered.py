@@ -7,11 +7,13 @@ Kernel 1 in both modes, kernel 8 (radix counting pass) and kernel 9
 Inputs come from numpy with fixed seeds.  Tolerances: the planes as in
 ``test_torch_frontend.py`` (scaled error 1e-5 on well-conditioned
 cells, the reference's fused-vs-unfused class elsewhere); counts, order
-statistics and binary maps bitwise.  The arithmetic of kernel 1's
-tensor-core redesign (``probe_frontend_planes_tf32.cu``), a 3-pass TF32
-split, is emulated here in fp32 (``split_tf32`` and three f32 matmuls)
-and held to the float64 bound of ``planes64`` and to the reference at
-the plain version's tolerances.
+statistics and binary maps bitwise.  The arithmetic of kernel 1's CUDA
+kernel (``csrc/frontend_planes.cu``), a 3-pass TF32 split, is emulated
+here in fp32 (``split_tf32`` and three f32 matmuls) and held to what the
+kernel is held to on the card (within 1e-5, scaled, of the float64
+planes of ``planes64`` and within their error bound), and to the
+reference at the plain version's tolerances; the wrapper's cached split
+basis is checked against ``split_tf32``.
 """
 
 from __future__ import annotations
@@ -228,7 +230,9 @@ def test_path_rule_reads_shapes():
     assert not tplanes._fused_ok(FrontendConfig(use_mel=True, n_mels=40))
     assert tplanes._fused_ok(FrontendConfig(use_mel=True, n_mels=129))  # F = 128
     assert tplanes._fused_ok(FrontendConfig(nfft=400))               # F = 200
-    assert not tplanes._fused_ok(FrontendConfig(nfft=4096))          # DFT width 2048
+    assert tplanes._fused_ok(FrontendConfig(nfft=4096))              # DFT width 2048
+    # F = 484, but more mel filters than the kernel's shared memory holds
+    assert not tplanes._fused_ok(FrontendConfig(use_mel=True, n_mels=k1.MAX_MELS + 1))
 
 
 @pytest.mark.parametrize("cfg", [FrontendConfig(), FrontendConfig(use_mel=True, n_mels=129)],
@@ -311,7 +315,7 @@ def test_features_wrappers_match_reference(use_mel):
         assert not got[i, v:].any()
 
 
-# ---- the tensor-core redesign's 3-pass TF32 split, emulated in fp32 -------
+# ---- the kernel's 3-pass TF32 split, emulated in fp32 --------------------
 
 
 @pytest.mark.parametrize("kind", ["normal", "tiny", "ties"])
@@ -411,3 +415,43 @@ def test_split_planes_match_reference(nfft, n_mels):
     assert ok.mean() > 0.5
     assert np.max(np.abs(got - want)[:, ok]) / np.max(np.abs(want)) <= 1e-5
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("nfft,n_mels", SPLIT_SHAPES)
+@pytest.mark.parametrize("source", ["audio", "noise"])
+def test_split_planes_within_1e5_of_float64(source, nfft, n_mels):
+    """The card's check of kernel 1 (``planes_metrics``), met by the
+    emulated split: on the well-conditioned cells within 1e-5 of the
+    float64 planes, scaled by max|plain|, and on every cell within the
+    error bound with the split's term."""
+    cfg = FrontendConfig(nfft=nfft, use_mel=n_mels > 0, n_mels=n_mels or 64)
+    if source == "audio":
+        frames = _frames(cfg)
+    else:
+        frames = np.random.default_rng(12).standard_normal((250, 400)).astype(np.float32)
+    ft = torch.from_numpy(frames)
+    m = k1.planes_metrics(ft, nfft, _split_planes(frames, nfft, cfg.sample_rate, n_mels),
+                          k1.edge_response_planes_plain(ft, nfft, cfg.sample_rate, n_mels),
+                          cfg.sample_rate, n_mels, split=True)
+    assert m["share"] > 0.5
+    assert m["scaled64"] <= 1e-5
+    assert m["head"] <= 1.0 and m["plain_head"] <= 1.0
+
+
+@pytest.mark.parametrize("frame_length", [398, 400])
+def test_kernel_basis_is_the_split_dft(frame_length):
+    """The wrapper's cached basis [6, bins, FL4] (FL4 = the frame length
+    rounded up to 4, zero columns past it): ``split_tf32`` of the
+    transposed ``dft_matrices``, then the unsplit cos and -sin."""
+    nfft = 512
+    basis = k1._basis_on(frame_length, nfft, "cpu")
+    bins = nfft // 2 + 1
+    assert tuple(basis.shape) == (6, bins, 400) and basis.dtype == torch.float32
+    assert not basis[:, :, frame_length:].any()
+    cos_m, sin_m = tdft.dft_matrices(frame_length, nfft)
+    want = []
+    for m in (cos_m, sin_m):
+        want += list(k1.split_tf32(m.t().contiguous()))
+    want += [cos_m.t(), sin_m.t()]
+    for got, w in zip(basis[:, :, :frame_length], want):
+        assert torch.equal(got, w)

@@ -1,0 +1,69 @@
+"""Times kernel 1 (log-magnitude and mel mode) and kernel 5 (the iDFT)
+of the port in one or more checkouts, at the streaming scan's bench
+shape, by one method: ``chip_smoke.time_ms`` over loops of 100 launches
+(device time) and over one launch (the wrapper's host time included).
+
+    python3 time_kernels.py ROOT [ROOT ...]
+
+Each ROOT is the root of a checkout: its package is imported from
+there, in a process of its own, and builds its kernels into its own
+``_build/``.  Give two commits as A B B A to compare them on one card.
+Prints the card's name and power limit, then one JSON line a ROOT.
+Needs a CUDA device."""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+from chip_smoke import card_line, time_ms
+
+N_ROWS, FL, NFFT, SR, N_MELS = 8 * 3072, 400, 512, 16000, 64   # B 8 x T_pad 3072 frames
+TWO_BINS, HOP, NBLK, B, K = 160, 128, 24, 8, 1024              # nfft 159, L 32
+
+
+def one(root: str) -> dict:
+    """The times of ``root``'s kernels (run in a process of its own)."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import torch
+
+    from template_speech_recognition_tpu_torch.ops import fft_idft_kernel as k5
+    from template_speech_recognition_tpu_torch.ops import frontend_kernel as k1
+
+    if not k1.__file__.startswith(root):
+        raise RuntimeError(f"imported {k1.__file__}, not from {root}")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    frames = torch.randn(N_ROWS, FL, device=dev, generator=g)
+    ycat = torch.randn(TWO_BINS, B * NBLK * K, device=dev, generator=g).to(torch.bfloat16)
+    imat = torch.randn(TWO_BINS, HOP, device=dev, generator=g).to(torch.bfloat16)
+    c = torch.randn(K, device=dev, generator=g)
+    calls = {
+        "frontend_planes": lambda: k1.edge_response_planes(frames, NFFT),
+        "frontend_planes_mel": lambda: k1.edge_response_planes(frames, NFFT, SR, N_MELS),
+        "fft_idft": lambda: k5.fft_idft(ycat, imat, c, NBLK),
+    }
+    out = {"root": root}
+    for name, fn in calls.items():
+        out[name] = {"loop100_ms": time_ms(torch, fn, loop=100), "one_launch_ms": time_ms(torch, fn)}
+    return out
+
+
+def main() -> int:
+    if len(sys.argv) > 2 and sys.argv[1] == "--one":
+        print(json.dumps(one(sys.argv[2])), flush=True)
+        return 0
+    if len(sys.argv) < 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    print(card_line(), flush=True)
+    for root in sys.argv[1:]:
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root], check=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
