@@ -13,8 +13,8 @@
    PyTorch version on the same inputs, with the tolerance stated beside
    each check; times kernel, plain version and one library call with
    CUDA events (median of 10 after 2 warm-ups; the two short DTW
-   kernels, kernels 1 and 5 and their library calls over loops of 100
-   launches, so the wrapper's host time is not timed) and
+   kernels, kernels 1, 2 and 5 and the library calls of 1 and 5 over
+   loops of 100 launches, so the wrapper's host time is not timed) and
    computes each kernel's bound (the larger of the least bytes / 3.35
    TB/s and operations / the peak rate of their type).  The log-mel
    scan's kernels (n_mels 64: F = 63, D = 504) follow: kernel 1 in mel
@@ -39,7 +39,17 @@
    K = 8, 136 x bins = 1, 3, the 4-D input, the TMA + wgmma iDFT at
    2 bins = 40, 160 x hop = 32, 128, 224 x K = 8, 136, 1024 x m = 1,
    3, 192 and at hop 30, and misaligned base pointers that must raise)
-   and holds it against its plain version.  Kernel 1 (the DFT as three
+   and holds it against its plain version.  Kernel 2 (16-CTA clusters
+   that walk the (plane, utterance) pairs, a pair's plane resident in
+   distributed shared memory; a multipass variant for planes past its
+   capacity) is
+   held bitwise, map and keys, at 74 ragged shapes (T not a multiple of
+   16, F not of 32, an utterance with no valid row, ranks 0 and past the
+   valid count, ties and -0.0, rf and rt 0..2, T at the cluster
+   variant's capacity and one row past it), each launch's variant held
+   to the wrapper's shape rule and the kernel's own; its
+   ``cudaOccupancyMaxActiveClusters`` and the multipass variant's time
+   one row past the capacity are printed.  Kernel 1 (the DFT as three
    TF32 passes on the tensor cores) is held at 34 shapes (1 to 24,576
    rows, nfft 256 to 4096, frame lengths 398 and 400, n_mels 0 to 484)
    to the float64 planes: within 1e-5 scaled on the well-conditioned
@@ -124,6 +134,8 @@ MEL_KERNELS = ("frontend_planes_mel", "radix_counts", "binspread", "fft_block_df
 # the two shapes at which the kernels line reports fft_binmm
 BINMM_BENCH = "bench: bins 80, m 192, D 2048, K 1024"
 BINMM_MEL = "log-mel: bins 80, m 192, D 504, K 1024"
+# the variant and shape at which the kernels line reports select_binspread
+SELBIN_BENCH = "cluster: P 4, B 8, T 3072, F 256"
 
 
 class CheckFailed(Exception):
@@ -439,6 +451,66 @@ def correlation_bench(torch, kc, flat, wflat, cf, record, say):
     return x
 
 
+def selbin_planes(torch, dev, rng, p, b, t, f):
+    """Random planes with ties (the first third of the rows quantised to
+    0.25) and a run of -0.0."""
+    x = rng.standard_normal((p, b, t, f)).astype(np.float32)
+    x[:, :, : t // 3] = np.round(x[:, :, : t // 3] * 4) / 4
+    x[:, :, min(5, t - 1), : min(7, f)] = -0.0
+    return torch.from_numpy(x).to(dev)
+
+
+def selbin_checks(torch, dev, k2, fp, say):
+    """Kernel 2 bitwise (map and keys) against its plain version at
+    ragged shapes, with the variant each launch took held to the
+    wrapper's shape rule: T = 256, 200, 37, 5 (not all multiples of 16)
+    x F = 128, 100, 36, 4 (multiples of 4, not of 32), an utterance with
+    no valid row, ranks 0 and past the valid count, ties and -0.0, q 0.3
+    and 0.98, rf and rt 0, 1, 2; then T at the cluster variant's capacity
+    (F = 256) and one row past it, so both variants launch."""
+    rng = np.random.default_rng(SEED + 2)
+    launched = {"cluster": 0, "multipass": 0}
+
+    def one(planes, need, valid, rf, rt, label):
+        p, b, t, f = planes.shape
+        want = k2.route(t, f)
+        check(k2.cluster_fits_on_card(t, f) == (want == "cluster"),
+              f"select_binspread {label}: the wrapper's route and the kernel's shape rule differ")
+        before = dict(k2.route_launches)
+        fk, kk = k2.select_binspread(planes, need, valid, rf, rt)
+        fr, kr = k2.select_binspread_plain(planes, need, valid, rf, rt)
+        ran = [v for v in before if k2.route_launches[v] != before[v]]
+        check(ran == [want], f"select_binspread {label}: ran {ran}, the rule says {want}")
+        check(bool(torch.equal(fk, fr)) and bool(torch.equal(kk, kr)),
+              f"select_binspread {label} ({want}): {int((fk != fr).sum())} cells and "
+              f"{int((kk != kr).sum())} keys differ (bitwise)")
+        launched[want] += 1
+
+    n = 0
+    for t, f in ((256, 128), (200, 100), (37, 36), (5, 4)):
+        planes = selbin_planes(torch, dev, rng, 4, 4, t, f)
+        valid = torch.tensor([t, t // 2, min(7, t), 0], dtype=torch.int32, device=dev)
+        for q in (0.3, 0.98):
+            need = fp._dual_ranks(valid, f, q)
+            need[2, 0] = 0                               # rank 0 selects key 0
+            need[1, 1] = int(valid[1]) * f + 5           # past the valid cells
+            for rf in (0, 1, 2):
+                for rt in (0, 1, 2):
+                    one(planes, need, valid, rf, rt, f"T {t} F {f} q {q} rf {rf} rt {rt}")
+                    n += 1
+    t_cap = 16 * max(r for r in range(1, 400) if k2.route(16 * r, 256) == "cluster")
+    for t in (t_cap, t_cap + 1):
+        planes = selbin_planes(torch, dev, rng, 4, 2, t, 256)
+        valid = torch.tensor([t, t - 100], dtype=torch.int32, device=dev)
+        one(planes, fp._dual_ranks(valid, 256, 0.98), valid, 1, 1, f"T {t} F 256")
+        n += 1
+    check(launched["cluster"] > 0 and launched["multipass"] > 0,
+          f"select_binspread: both variants must launch, got {launched}")
+    say(f"select_binspread: bitwise (map and keys) at {n} ragged shapes, launches by variant "
+        f"{launched}; the cluster variant's capacity at F = 256 is T = {t_cap} "
+        f"(T = {t_cap + 1} takes the multipass variant)")
+
+
 def small_shape_checks(torch, dev, audio, k1, k2, k3, k4, k5, kp, kd, k8, k9, kc, fp, fs,
                        say):
     """Each kernel once at small ragged shapes (the CPU tests' sizes:
@@ -454,17 +526,7 @@ def small_shape_checks(torch, dev, audio, k1, k2, k3, k4, k5, kp, kd, k8, k9, kc
     check_planes(torch, frames, 256, k1.edge_response_planes(frames, 256),
                  k1.edge_response_planes_plain(frames, 256), "frontend_planes (small)")
 
-    planes = rng.standard_normal((4, 4, 256, 128)).astype(np.float32)
-    planes[:, :, :85] = np.round(planes[:, :, :85] * 4) / 4     # ties
-    planes[:, :, 5, :7] = -0.0
-    planes = torch.from_numpy(planes).to(dev)
-    valid = torch.tensor([256, 128, 7, 0], dtype=torch.int32, device=dev)
-    for q, rf, rt in ((0.98, 1, 1), (0.3, 2, 0)):
-        need = fp._dual_ranks(valid, 128, q)
-        fk, kk = k2.select_binspread(planes, need, valid, rf, rt)
-        fr, kr = k2.select_binspread_plain(planes, need, valid, rf, rt)
-        check(bool(torch.equal(fk, fr)) and bool(torch.equal(kk, kr)),
-              f"select_binspread (small, q={q}): not bitwise")
+    selbin_checks(torch, dev, k2, fp, say)
 
     b, t, d, k, nfft, hop = 2, 250, 1024, 128, 39, 32
     nblk = -(-(t - 8 + 1) // hop)
@@ -1078,6 +1140,8 @@ def main() -> int:
     planes4 = planes.reshape(4, B, t_pad, f)
     need = fp._dual_ranks(valid, f, fcfg.edge_quantile)
     args2 = (planes4, need, valid, fcfg.spread_freq, fcfg.spread_time)
+    variant2 = k2.route(t_pad, f)
+    check(variant2 == "cluster", f"select_binspread: the scan's planes take {variant2}")
     flat, keys = k2.select_binspread(*args2)
     flat_ref, keys_ref = k2.select_binspread_plain(*args2)
     torch.cuda.synchronize()
@@ -1085,16 +1149,31 @@ def main() -> int:
     check(n_bad == 0, f"select_binspread: {n_bad} cells or keys differ (bitwise)")
     kth = int(need[0, 0])
     pv = planes4.permute(1, 0, 2, 3).reshape(B * 4, t_pad * f)
+    say(f"select_binspread: cudaOccupancyMaxActiveClusters {k2.max_active_clusters()} "
+        f"(16-CTA clusters, 1,024 threads and 232,448 bytes of shared memory a CTA); "
+        f"{4 * B} (plane, utterance) pairs; one launch between the events (with the "
+        f"wrapper's host time) {time_ms(torch, lambda: k2.select_binspread(*args2)):.4f} ms")
     record(
         k2, 0.0, "bitwise",
-        time_ms(torch, lambda: k2.select_binspread(*args2)),
+        time_ms(torch, lambda: k2.select_binspread(*args2), loop=100),
         time_ms(torch, lambda: k2.select_binspread_plain(*args2)),
         time_ms(torch, lambda: torch.kthvalue(pv, kth, dim=1)),
         # only rows below valid are read; the whole map is written
         4 * int(valid.sum()) * f * 4 + B * t_pad * 8 * f + need.numel() * 4
-        + valid.numel() * 4 + keys.numel() * 4,
-        0, 1.0,
+        + valid.numel() * 4 + keys.numel() * 8,
+        0, 1.0, shape=SELBIN_BENCH,
     )
+    # the multipass variant one row past the cluster variant's capacity
+    t_big = 16 * max(r for r in range(1, 400) if k2.route(16 * r, f) == "cluster") + 1
+    big = torch.randn(4, B, t_big, f, device=dev)
+    vbig = torch.full((B,), t_big - 1, dtype=torch.int32, device=dev)
+    args_big = (big, fp._dual_ranks(vbig, f, fcfg.edge_quantile), vbig, fcfg.spread_freq,
+                fcfg.spread_time)
+    check(k2.route(t_big, f) == "multipass", "select_binspread: T_big must take multipass")
+    say(f"select_binspread (multipass variant, P 4, B {B}, T {t_big}, F {f}, random "
+        f"planes): {time_ms(torch, lambda: k2.select_binspread(*args_big), loop=100):.4f} ms "
+        f"over loops of 100 launches (the kernels line's row is the cluster variant)")
+    del big, args_big
 
     # kernel 3: block DFT; bf16 output -> one bf16 step (2^-7) of max|ref|
     bf16_tol = 2.0 ** -7
@@ -1328,6 +1407,7 @@ def main() -> int:
     detect_corpus_stream(corpus.head(B), bank, scan_cfg, target_phone="aa")
     torch.cuda.synchronize()
     _cuda.reset_launches()
+    k2.route_launches.update(cluster=0, multipass=0)
     t0 = time.perf_counter()
     res = detect_corpus_stream(corpus, bank, scan_cfg, target_phone="aa")
     torch.cuda.synchronize()
@@ -1335,6 +1415,8 @@ def main() -> int:
     counts = _cuda.launch_counts()
     for name in SCAN_KERNELS:
         check(counts.get(name, 0) > 0, f"{name} was not launched by the scan")
+    check(k2.route_launches == {"cluster": counts["select_binspread"], "multipass": 0},
+          f"the scan's select_binspread launches by variant: {k2.route_launches}")
     take_launches(rows, SCAN_KERNELS, counts)
     ctr = res.counters
     stages = " ".join(

@@ -72,8 +72,10 @@ class FlatFeatureMap(NamedTuple):
 def _fused_ok(cfg: FrontendConfig) -> bool:
     """Shapes both kernels of the two-kernel path take.  Unlike the
     reference, no budget on T: its select keeps a whole plane resident
-    in VMEM, while the port's streams the planes through L2 in radix
-    passes and has no residency limit."""
+    in VMEM up to 786,432 cells; the port's keeps it resident in a
+    16-CTA cluster's shared memory up to T = 3264 at F = 256 and takes
+    larger planes by its multipass variant (``ops.selbin_kernel.route``),
+    which streams them through L2 in radix passes."""
     return (
         frontend_kernel.supported(cfg.nfft, cfg.n_mels if cfg.use_mel else 0)
         and cfg.feature_freqs % 4 == 0

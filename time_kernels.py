@@ -1,7 +1,10 @@
-"""Times kernel 1 (log-magnitude and mel mode) and kernel 5 (the iDFT)
-of the port in one or more checkouts, at the streaming scan's bench
-shape, by one method: ``chip_smoke.time_ms`` over loops of 100 launches
-(device time) and over one launch (the wrapper's host time included).
+"""Times kernel 1 (log-magnitude and mel mode), kernel 2 (select +
+binarize + spread) and kernel 5 (the iDFT) of the port in one or more
+checkouts, at the streaming scan's bench shape, by one method:
+``chip_smoke.time_ms`` over loops of 100 launches (device time) and over
+one launch (the wrapper's host time included).  Kernel 2 takes random
+normal planes [4, 8, 3072, 256] with 2998 valid frames (30 s), q 0.98,
+rf = rt = 1.
 
     python3 time_kernels.py ROOT [ROOT ...]
 
@@ -22,6 +25,7 @@ from chip_smoke import card_line, time_ms
 
 N_ROWS, FL, NFFT, SR, N_MELS = 8 * 3072, 400, 512, 16000, 64   # B 8 x T_pad 3072 frames
 TWO_BINS, HOP, NBLK, B, K = 160, 128, 24, 8, 1024              # nfft 159, L 32
+T_PAD, F, VALID, QUANTILE = 3072, 256, 2998, 0.98              # kernel 2
 
 
 def one(root: str) -> dict:
@@ -30,8 +34,10 @@ def one(root: str) -> dict:
     sys.path.insert(0, root)
     import torch
 
+    from template_speech_recognition_tpu_torch.frontend.planes import _dual_ranks
     from template_speech_recognition_tpu_torch.ops import fft_idft_kernel as k5
     from template_speech_recognition_tpu_torch.ops import frontend_kernel as k1
+    from template_speech_recognition_tpu_torch.ops import selbin_kernel as k2
 
     if not k1.__file__.startswith(root):
         raise RuntimeError(f"imported {k1.__file__}, not from {root}")
@@ -41,9 +47,13 @@ def one(root: str) -> dict:
     ycat = torch.randn(TWO_BINS, B * NBLK * K, device=dev, generator=g).to(torch.bfloat16)
     imat = torch.randn(TWO_BINS, HOP, device=dev, generator=g).to(torch.bfloat16)
     c = torch.randn(K, device=dev, generator=g)
+    planes = torch.randn(4, B, T_PAD, F, device=dev, generator=g)
+    valid = torch.full((B,), VALID, dtype=torch.int32, device=dev)
+    need = _dual_ranks(valid, F, QUANTILE)
     calls = {
         "frontend_planes": lambda: k1.edge_response_planes(frames, NFFT),
         "frontend_planes_mel": lambda: k1.edge_response_planes(frames, NFFT, SR, N_MELS),
+        "select_binspread": lambda: k2.select_binspread(planes, need, valid, 1, 1),
         "fft_idft": lambda: k5.fft_idft(ycat, imat, c, NBLK),
     }
     out = {"root": root}
