@@ -27,14 +27,19 @@
    (bitwise), and pair LLR and the int8 and bf16 bin matmuls at D = 504
    (the bf16 one on the log-mel scan's own spectra and bank, a second
    ``fft_binmm`` entry in the kernels line, tagged by ``shape``).  The
-   direct correlation kernel runs at the reference's bench shape (8
-   maps of T = 3000 frames of the scan's frontend, K = 1024, L = 32,
-   D = 2048; its yardstick is ``conv1d`` in bf16).
+   direct correlation kernel (TMA + wgmma, resident frame panels) runs at the
+   reference's bench shape (8 maps of T = 3000 frames of the scan's
+   frontend, K = 1024, L = 32, D = 2048) and at one of those maps (B =
+   1, the pallas API path's launch), two rows tagged by ``shape``, each
+   held to two launches bitwise equal; its yardstick is ``conv1d`` in
+   bf16.
    It also runs every kernel once at small ragged shapes (partial
    tiles, odd nfft, an utterance with no valid row, ties and -0.0,
    DTW at L = 32, 48, 96, 128 and 200 with ragged segment lengths and band
    1, LLR windows past the map's end, F = 39 and 63, unaligned radix
-   rows, correlation at K = 3, D = 40 and 504, L = 1, 9, 48 and T, the
+   rows, correlation at K = 1, 3 and 129, D = 40, 504 and 2048, T''
+   not a multiple of its 192-start tile, L = 1, 9, 17, 32, 48 and T
+   (two launches bitwise equal), the
    TMA + wgmma bin matmul at m = 1, 63, 64, 65, 96 x D = 8, 40, 504 x
    K = 8, 136 x bins = 1, 3, the 4-D input, the TMA + wgmma iDFT at
    2 bins = 40, 160 x hop = 32, 128, 224 x K = 8, 136, 1024 x m = 1,
@@ -136,6 +141,9 @@ BINMM_BENCH = "bench: bins 80, m 192, D 2048, K 1024"
 BINMM_MEL = "log-mel: bins 80, m 192, D 504, K 1024"
 # the variant and shape at which the kernels line reports select_binspread
 SELBIN_BENCH = "cluster: P 4, B 8, T 3072, F 256"
+# the two shapes at which the kernels line reports correlation
+CORR_BENCH = "bench: B 8, T 3000, K 1024, L 32, D 2048"
+CORR_ONE = "one utterance: B 1, T 3000, K 1024, L 32, D 2048"
 
 
 class CheckFailed(Exception):
@@ -421,33 +429,40 @@ def correlation_bench(torch, kc, flat, wflat, cf, record, say):
     frontend maps cut to T frames (their real sparsity), the random
     bank's flat LLR filter.  Held against the plain f32 version on the
     same bf16 operands within 1e-5 x max|score|: both sum the same exact
-    products (binary x bf16) in float32, in different orders.  Returns
-    the bf16 maps [B, T, D]."""
+    products (binary x bf16) in float32, in different orders; two
+    launches on the same inputs must be bitwise equal (no split of the
+    contraction).  Then the same at one utterance (B = 1, the pallas API
+    path's launch), a second row tagged by ``shape``.  Returns the bf16
+    maps [B, T, D]."""
     b, d = flat.shape[0], flat.shape[2]
     x = flat[:, :T_BENCH].to(torch.bfloat16).contiguous()
     w16 = wflat.to(torch.bfloat16).contiguous()
     k, length = w16.shape[0], w16.shape[1]
     tv = T_BENCH - length + 1
-    got = kc.correlation_scores(x, w16, cf)
-    want, plain_ms = time_once(torch, lambda: kc.correlation_scores_plain(x, w16, cf))
-    err = float((got - want).abs().max())
-    top = float(want.abs().max())
-    check(bool(torch.isfinite(got).all()), "correlation: scores not finite")
-    check(err <= 1e-5 * top, f"correlation: {err} > 1e-5 * {top}")
-    del got, want
-    xt = x.transpose(1, 2).contiguous()                          # conv1d's [B, D, T]
-    wt = w16.transpose(1, 2).contiguous()                        # [K, D, L]
-    record(
-        kc, err, "1e-5 * max|plain|",
-        time_ms(torch, lambda: kc.correlation_scores(x, w16, cf)),
-        plain_ms,
-        time_ms(torch, lambda: torch.nn.functional.conv1d(xt, wt)),   # bf16 out
-        x.numel() * 2 + w16.numel() * 2 + k * 4 + b * k * tv * 4,
-        2 * b * k * tv * length * d, BF16_FLOPS,
-    )
-    say(f"correlation at the bench shape (B {b}, T {T_BENCH}, K {k}, L {length}, D {d}; "
-        f"{float(x.float().mean()):.4f} of the map set): max|score| {top:.6g}; plain "
-        "timed once")
+    wt = w16.transpose(1, 2).contiguous()                        # conv1d's [K, D, L]
+    for xs, shape in ((x, CORR_BENCH), (x[:1].contiguous(), CORR_ONE)):
+        bs = xs.shape[0]
+        got = kc.correlation_scores(xs, w16, cf)
+        check(bool(torch.equal(got, kc.correlation_scores(xs, w16, cf))),
+              f"correlation ({shape}): two launches differ")
+        want, plain_ms = time_once(torch, lambda: kc.correlation_scores_plain(xs, w16, cf))
+        err = float((got - want).abs().max())
+        top = float(want.abs().max())
+        check(bool(torch.isfinite(got).all()), "correlation: scores not finite")
+        check(err <= 1e-5 * top, f"correlation ({shape}): {err} > 1e-5 * {top}")
+        del got, want
+        xt = xs.transpose(1, 2).contiguous()                     # conv1d's [B, D, T]
+        record(
+            kc, err, "1e-5 * max|plain|",
+            time_ms(torch, lambda: kc.correlation_scores(xs, w16, cf)),
+            plain_ms,
+            time_ms(torch, lambda: torch.nn.functional.conv1d(xt, wt)),   # bf16 out
+            xs.numel() * 2 + w16.numel() * 2 + k * 4 + bs * k * tv * 4,
+            2 * bs * k * tv * length * d, BF16_FLOPS, shape=shape,
+        )
+        del xt
+        say(f"correlation ({shape}; {float(xs.float().mean()):.4f} of the map set): "
+            f"max|score| {top:.6g}, two launches bitwise equal; plain timed once")
     return x
 
 
@@ -716,20 +731,26 @@ def small_shape_checks(torch, dev, audio, k1, k2, k3, k4, k5, kp, kd, k8, k9, kc
         close(kp.pair_llr(fmap, wq, rs, ids, mm), kp.pair_llr_plain(fmap, wq, rs, ids, mm),
               1e-5, f"pair_llr (L={length}, m={mm})")
 
-    # direct correlation: T not a multiple of the 128-row tile, K = 3
-    # and 129, D = 40, 504 and 2048, L = 1, 9, 32, 48 and L = T, B = 1,
-    # and an all-zero utterance, whose scores are c exactly
+    # direct correlation: T'' not a multiple of the 192-start tile, K = 1,
+    # 3 and 129 (a template tile past K), D = 40 and 504 (a partial last
+    # 64-column chunk) and
+    # 2048, L = 1, 9, 32, 48 and L = T, B = 1, and an all-zero utterance,
+    # whose scores are c exactly; two launches bitwise equal
     for bb, tt, dd, kk, length in ((1, 77, 40, 3, 9), (2, 300, 504, 5, 48),
                                    (3, 130, 504, 130, 1), (1, 48, 16, 7, 48),
-                                   (2, 257, 2048, 129, 32)):
+                                   (2, 257, 2048, 129, 32), (1, 250, 40, 1, 9),
+                                   (3, 430, 504, 1, 32), (2, 200, 40, 129, 1),
+                                   (2, 600, 504, 3, 17)):
         xc = torch.from_numpy(rng.random((bb, tt, dd)) < 0.2).to(dev, torch.bfloat16)
         if bb > 1:
             xc[-1] = 0
         wc = torch.randn(kk, length, dd, device=dev).to(torch.bfloat16)
         cc = torch.randn(kk, device=dev)
         got = kc.correlation_scores(xc, wc, cc)
-        close(got, kc.correlation_scores_plain(xc, wc, cc), 1e-5,
-              f"correlation (B={bb}, T={tt}, D={dd}, K={kk}, L={length})")
+        label = f"correlation (B={bb}, T={tt}, D={dd}, K={kk}, L={length})"
+        close(got, kc.correlation_scores_plain(xc, wc, cc), 1e-5, label)
+        check(bool(torch.equal(got, kc.correlation_scores(xc, wc, cc))),
+              f"{label}: two launches differ")
         if bb > 1:
             check(bool(torch.equal(got[-1], cc[:, None].expand(kk, tt - length + 1))),
                   "correlation: an all-zero utterance does not score c")

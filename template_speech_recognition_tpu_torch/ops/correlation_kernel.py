@@ -9,17 +9,28 @@ t < T - L + 1, bf16 operands and fp32 accumulation.  The TPU kernel's
 tail contract (starts >= T - L + 1 read a clamped block) covers only
 starts its caller slices off; the port computes the valid starts alone.
 
-CUDA design (``csrc/correlation.cu``): window t of a row-major [T, D]
-map is one contiguous run of L*D values, so the correlation is one GEMM
-``[B*T'', L*D] . [K, L*D]^T`` whose A operand is a Hankel view of the
-map (row stride D), never materialized.  A 128 x 128 mma.sync tile with
-a 4-stage cp.async ring; W is read in its own [K, L, D] layout, both
-operands k-contiguous.  Any T, K and L <= T; D a multiple of 8 (D = 8F'
-always is); ragged tiles are zero-filled inside the kernel.
+CUDA design (``csrc/correlation.cu``): TMA + ``wgmma``.  A tile is
+``TILE_K`` = 128 templates (the wgmma M side) by ``TILE_T`` = 192 window
+starts of one utterance (the N side); its contraction runs over
+ceil(D / 64) d-chunks, and inside each over the L shifts tau, each step
+one [128, 64] W box at (d0, tau, k0) times the frames t0 + tau ..
+t0 + tau + 191 of columns d0 .. d0 + 63.  Those frames come from a
+panel kept in shared memory: rows t0 + tau0 .. t0 + tau0 + 223 of the
+chunk serve 32 shifts, and step tau starts its wgmma operand tau - tau0
+rows in (the panel is unswizzled, so a row offset is 16 bytes of start
+address).  Both come by TMA through plain 3-D tensor maps, which
+zero-fill columns past D, rows past T and templates past K, so a
+partial last d-chunk adds exactly zero.  One producer warp, two
+consumer warpgroups, a 10-slot W ring and two panel slots.  No split of
+the contraction: every output is one block's sum in one fixed order, so
+launches are bitwise repeatable.  ``correlation_scores_tiled`` walks the
+same schedule in PyTorch, for the tests.  Any T, K and L <= T; D a
+multiple of 8 (D = 8F' always is); 16-byte aligned bases.
 
 What bounds it on the H100: bf16 operations.  At the reference's bench
-shape (B = 8, T = 3000, K = 1024, L = 32, D = 2048) 3.19 TFLOP take 3.2
-ms at 989 TFLOP/s; its least bytes (0.33 GB) take 0.1 ms.
+shape (B = 8, T = 3000, K = 1024, L = 32, D = 2048) 3.19 TFLOP take 3.22
+ms at 989 TFLOP/s; its least bytes (0.33 GB) take 0.1 ms.  One
+utterance (B = 1): 0.40 ms.
 """
 
 from __future__ import annotations
@@ -31,6 +42,9 @@ from template_speech_recognition_tpu_torch.ops import _cuda
 NAME = "correlation"
 SOURCE = "template_speech_recognition_tpu_torch/csrc/correlation.cu"
 REPLACES = "template_speech_recognition_tpu/ops/correlation_pallas.py:102"
+# the kernel's tile: templates, window starts, d columns a step (BM, BN,
+# BK of csrc/correlation.cu)
+TILE_K, TILE_T, CHUNK_D = 128, 192, 64
 
 
 def correlation_scores_plain(feats, w, c) -> torch.Tensor:
@@ -45,6 +59,42 @@ def correlation_scores_plain(feats, w, c) -> torch.Tensor:
     for tau in range(1, length):
         acc += x[:, tau : tau + tv] @ wf[:, tau].T
     return (acc + c.to(torch.float32)).transpose(1, 2)
+
+
+def correlation_scores_tiled(feats, w, c) -> torch.Tensor:
+    """The kernel's schedule in plain PyTorch (float32), for the tests:
+    tiles of ``TILE_K`` templates x ``TILE_T`` window starts of one
+    utterance, each a sum over d-chunks (outer) and shifts tau (inner) of
+    ``W[k0:k0+TILE_K, tau, d0:d0+CHUNK_D] @ F[b, t0+tau : t0+tau+TILE_T,
+    d0:d0+CHUNK_D]^T`` (the kernel reads the frames of 32 consecutive
+    shifts from one resident panel: the same values).  The boxes read
+    zeros where TMA zero-fills them: columns past D (the partial last
+    chunk), rows past T and templates past K.  Starts past T - L + 1 are
+    computed and dropped, as the kernel's epilogue does.
+    -> [B, K, T - L + 1]."""
+    b, t, d = feats.shape
+    k, length = w.shape[0], w.shape[1]
+    tv = t - length + 1
+    n_dc = -(-d // CHUNK_D)
+    n_tt, n_kt = -(-tv // TILE_T), -(-k // TILE_K)
+    xp = torch.zeros((b, n_tt * TILE_T + length - 1, n_dc * CHUNK_D))
+    xp[:, :t, :d] = feats.to(torch.float32)
+    wp = torch.zeros((n_kt * TILE_K, length, n_dc * CHUNK_D))
+    wp[:k, :, :d] = w.to(torch.float32)
+    out = torch.empty((b, k, tv))
+    for k0 in range(0, k, TILE_K):
+        for bi in range(b):
+            for t0 in range(0, tv, TILE_T):
+                acc = torch.zeros((TILE_K, TILE_T))
+                for dc in range(n_dc):
+                    cols = slice(dc * CHUNK_D, (dc + 1) * CHUNK_D)
+                    for tau in range(length):
+                        acc += wp[k0 : k0 + TILE_K, tau, cols] @ xp[bi, t0 + tau : t0 + tau + TILE_T,
+                                                                    cols].T
+                kk, tt = min(TILE_K, k - k0), min(TILE_T, tv - t0)
+                out[bi, k0 : k0 + kk, t0 : t0 + tt] = (acc[:kk, :tt]
+                                                       + c[k0 : k0 + kk, None].to(torch.float32))
+    return out
 
 
 def correlation_scores(feats, w, c) -> torch.Tensor:

@@ -85,6 +85,62 @@ def test_correlation_wrapper_runs_plain_on_cpu():
         kc.correlation_scores(feats[None], w.to("meta"), c)
 
 
+# (B, T, D, K, L) for the kernel's schedule: D below, across and on
+# 64-column chunks; T'' = T - L + 1 not a multiple of the 192-start tile
+# (two t-tiles at T'' 242, 200 and 252); K = 1, 3, 5 and 129 (two
+# template tiles); L = 1, 9, 48 and L = T; B = 1, 2, 3, whose last
+# utterance (B > 1) is all zero and scores exactly c
+TILED_CASES = [(1, 77, 40, 3, 9), (3, 250, 504, 129, 9), (1, 60, 2048, 1, 9),
+               (2, 48, 64, 5, 48), (1, 200, 504, 3, 1), (3, 230, 40, 1, 48),
+               (1, 260, 2048, 129, 9), (2, 31, 8, 2, 31)]
+
+
+@pytest.fixture(scope="module", params=TILED_CASES,
+                ids=lambda c: "B{}-T{}-D{}-K{}-L{}".format(*c))
+def tiled(request):
+    """A case, its seeded binary maps (the last utterance zeroed when
+    B > 1), a normal bank, and the schedule's scores."""
+    case = request.param
+    b, t, d, k, length = case
+    rng = np.random.default_rng(sum(case))
+    feats = (rng.random((b, t, d)) < 0.2).astype(np.float32)
+    if b > 1:
+        feats[-1] = 0
+    w = rng.standard_normal((k, length, d)).astype(np.float32)
+    c = rng.standard_normal((k,)).astype(np.float32)
+    return case, feats, w, c, kc.correlation_scores_tiled(*_t(feats, w, c)).numpy()
+
+
+def test_correlation_tiled_matches_plain(tiled):
+    """The kernel's tile schedule (zero-filled partial d-chunk, rows past
+    T, templates past K, starts past T'' dropped) against the plain
+    version within 1e-5 x max|plain| (both sum the same exact products in
+    float32, in other orders); an all-zero utterance scores c exactly."""
+    (b, t, _, k, length), feats, w, c, got = tiled
+    want = kc.correlation_scores_plain(*_t(feats, w, c)).numpy()
+    assert got.shape == want.shape == (b, k, t - length + 1)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+    if b > 1:
+        np.testing.assert_array_equal(got[-1], np.broadcast_to(c[:, None], got[-1].shape))
+
+
+def test_correlation_tiled_matches_reference(tiled):
+    """The schedule against the reference on the valid region t < T'':
+    its jnp twin for every utterance and its Pallas kernel in interpret
+    mode (one block over the whole shape, which interpret mode takes at
+    any size) for the first, within 1e-5 x max|reference|."""
+    (b, t, d, k, length), feats, w, c, got = tiled
+    tv = t - length + 1
+    for i in range(b):
+        want = np.asarray(correlation_scores_reference(
+            jnp.asarray(feats[i]), jnp.asarray(w), jnp.asarray(c)))[:, :tv]
+        np.testing.assert_allclose(got[i], want, rtol=0, atol=1e-5 * np.abs(want).max())
+    want = np.asarray(correlation_scores_pallas(
+        jnp.asarray(feats[0]), jnp.asarray(w), jnp.asarray(c),
+        block_k=k, block_t=t, block_d=d, interpret=True))[:, :tv]
+    np.testing.assert_allclose(got[0], want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
 def _filters(seed, k=6, length=9, f=5, e=8, t=140):
     rng = np.random.default_rng(seed)
     feats = rng.random((t, f, e)) < 0.3

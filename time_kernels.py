@@ -1,10 +1,14 @@
 """Times kernel 1 (log-magnitude and mel mode), kernel 2 (select +
-binarize + spread) and kernel 5 (the iDFT) of the port in one or more
-checkouts, at the streaming scan's bench shape, by one method:
-``chip_smoke.time_ms`` over loops of 100 launches (device time) and over
-one launch (the wrapper's host time included).  Kernel 2 takes random
-normal planes [4, 8, 3072, 256] with 2998 valid frames (30 s), q 0.98,
-rf = rt = 1.
+binarize + spread), kernel 5 (the iDFT) and kernel 10 (the direct
+correlation) of the port in one or more checkouts, at the streaming
+scan's bench shape, by one method: ``chip_smoke.time_ms`` over loops of
+100 launches (device time; kernel 10, milliseconds a launch, over loops
+of 10) and over one launch (the wrapper's host time included).  Kernel
+2 takes random normal planes [4, 8, 3072, 256] with 2998 valid frames
+(30 s), q 0.98, rf = rt = 1.  Kernel 10 takes the reference's bench
+shape (B 8, T 3000, K 1024, L 32, D 2048) and one utterance of it
+(B 1): random binary bf16 maps at 0.2 density, a random bf16 bank.
+Inputs come from seed 0.
 
     python3 time_kernels.py ROOT [ROOT ...]
 
@@ -26,6 +30,7 @@ from chip_smoke import card_line, time_ms
 N_ROWS, FL, NFFT, SR, N_MELS = 8 * 3072, 400, 512, 16000, 64   # B 8 x T_pad 3072 frames
 TWO_BINS, HOP, NBLK, B, K = 160, 128, 24, 8, 1024              # nfft 159, L 32
 T_PAD, F, VALID, QUANTILE = 3072, 256, 2998, 0.98              # kernel 2
+T_CORR, L_CORR, D_CORR, DENSITY = 3000, 32, 2048, 0.2         # kernel 10
 
 
 def one(root: str) -> dict:
@@ -35,6 +40,7 @@ def one(root: str) -> dict:
     import torch
 
     from template_speech_recognition_tpu_torch.frontend.planes import _dual_ranks
+    from template_speech_recognition_tpu_torch.ops import correlation_kernel as k10
     from template_speech_recognition_tpu_torch.ops import fft_idft_kernel as k5
     from template_speech_recognition_tpu_torch.ops import frontend_kernel as k1
     from template_speech_recognition_tpu_torch.ops import selbin_kernel as k2
@@ -50,6 +56,9 @@ def one(root: str) -> dict:
     planes = torch.randn(4, B, T_PAD, F, device=dev, generator=g)
     valid = torch.full((B,), VALID, dtype=torch.int32, device=dev)
     need = _dual_ranks(valid, F, QUANTILE)
+    maps = (torch.rand(B, T_CORR, D_CORR, device=dev, generator=g) < DENSITY).to(torch.bfloat16)
+    w = torch.randn(K, L_CORR, D_CORR, device=dev, generator=g).to(torch.bfloat16)
+    map1 = maps[:1].contiguous()
     calls = {
         "frontend_planes": lambda: k1.edge_response_planes(frames, NFFT),
         "frontend_planes_mel": lambda: k1.edge_response_planes(frames, NFFT, SR, N_MELS),
@@ -59,6 +68,9 @@ def one(root: str) -> dict:
     out = {"root": root}
     for name, fn in calls.items():
         out[name] = {"loop100_ms": time_ms(torch, fn, loop=100), "one_launch_ms": time_ms(torch, fn)}
+    for name, x in (("correlation", maps), ("correlation_b1", map1)):
+        fn = lambda x=x: k10.correlation_scores(x, w, c)      # noqa: E731
+        out[name] = {"loop10_ms": time_ms(torch, fn, loop=10), "one_launch_ms": time_ms(torch, fn)}
     return out
 
 
