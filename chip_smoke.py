@@ -25,8 +25,14 @@
    which stands for the whole 11-launch select), binarize + spread, the
    layered path against the two-kernel path at the default shape
    (bitwise), and pair LLR and the int8 and bf16 bin matmuls at D = 504
-   (the bf16 one on the log-mel scan's own spectra and bank, a second
-   ``fft_binmm`` entry in the kernels line, tagged by ``shape``).  The
+   (on the log-mel scan's own spectra and banks, a second ``fft_binmm``
+   and ``fft_binmm_int8`` entry in the kernels line, tagged by
+   ``shape``).  Kernel 6 (TMA + int8 wgmma) takes the bank's K-major
+   copy of W2 and block spectra whose rows are padded to 16 bytes; it is
+   held bitwise at both shapes (two launches bitwise equal) and timed
+   over loops of 100 launches, and bitwise at 54 small shapes (2m not a
+   multiple of 64, K not of 256, D = 8, 40, 504 and 2048, +-127 inputs
+   at 2D = 4096), where operands TMA cannot take must raise.  The
    direct correlation kernel (TMA + wgmma, resident frame panels) runs at the
    reference's bench shape (8 maps of T = 3000 frames of the scan's
    frontend, K = 1024, L = 32, D = 2048) and at one of those maps (B =
@@ -74,7 +80,8 @@
    against the same scan on the plain versions (>= 99% matched peaks
    with the same template, scores within their class): first the
    default scan (bf16 spectra), then the scan with DTW rescoring
-   (config 4, verify-the-winner) on int8 template spectra (config 5).
+   (config 4, verify-the-winner) on int8 template spectra (config 5),
+   whose traced device time a batch is printed.
    A map cell that ties its threshold may flip between two fp32
    evaluations of the planes and moves every score whose window holds
    it by a whole LLR term: such matches, at most ``MAX_EXEMPT`` of
@@ -139,6 +146,9 @@ MEL_KERNELS = ("frontend_planes_mel", "radix_counts", "binspread", "fft_block_df
 # the two shapes at which the kernels line reports fft_binmm
 BINMM_BENCH = "bench: bins 80, m 192, D 2048, K 1024"
 BINMM_MEL = "log-mel: bins 80, m 192, D 504, K 1024"
+# the two shapes at which the kernels line reports fft_binmm_int8
+INT8_BENCH = "bench: bins 80, m 192, D 2048, K 1024"
+INT8_MEL = "log-mel: bins 80, m 192, D 504, K 1024"
 # the variant and shape at which the kernels line reports select_binspread
 SELBIN_BENCH = "cluster: P 4, B 8, T 3072, F 256"
 # the two shapes at which the kernels line reports correlation
@@ -526,6 +536,76 @@ def selbin_checks(torch, dev, k2, fp, say):
         f"(T = {t_cap + 1} takes the multipass variant)")
 
 
+def int8_checks(torch, dev, k4, fs, say):
+    """Kernel 6 (TMA + int8 wgmma) bitwise against its plain version:
+    2m not a multiple of 64, K not of 256, D = 8, 40, 504 and 2048 (rows
+    padded to 16 bytes, as the scorer writes them) at 48 shapes; the
+    scorer's own 4-D operands from ``quantize_block_spectra``; +-127
+    everywhere at 2D = 4096, where row 0 meets the bound 2D x 127^2;
+    two launches bitwise equal; the wrapper's own K-major copy; and the
+    operands TMA cannot take (rows of 504 bytes, K not a multiple of 8)
+    must raise."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+
+    def operands(bins, m, d, k):
+        buf = torch.zeros((2, bins, m, k4.int8_row_width(d)), dtype=torch.int8, device=dev)
+        buf[..., :d] = torch.randint(-127, 128, (2, bins, m, d), dtype=torch.int8, device=dev,
+                                     generator=g)
+        w2 = torch.randint(-127, 128, (bins, 2 * d, k), dtype=torch.int8, device=dev,
+                           generator=g)
+        return buf[0, ..., :d], buf[1, ..., :d], w2, torch.rand(bins, k, device=dev,
+                                                               generator=g) * 1e-3
+
+    n = 0
+    for m in (1, 33, 50, 97):
+        for d in (8, 40, 504, 2048):
+            for k in (8, 136, 264):
+                xr, xi, w2, sc = operands(2, m, d, k)
+                got = k4.fft_binmm_int8(xr, xi, w2, sc, w2_kmajor=k4.kmajor_spectra(w2))
+                check(bool(torch.equal(got, k4.fft_binmm_int8_plain(xr, xi, w2, sc))),
+                      f"fft_binmm_int8 (m {m}, D {d}, K {k}): not bitwise")
+                n += 1
+    for d in (40, 504):
+        xf = [torch.randn(3, 2, 25, d, device=dev, generator=g) * 50 for _ in range(2)]
+        w2 = torch.randint(-127, 128, (3, 2 * d, 136), dtype=torch.int8, device=dev, generator=g)
+        xr, xi, sc = fs.quantize_block_spectra(*xf, torch.rand(3, 136, device=dev, generator=g))
+        got = k4.fft_binmm_int8(xr, xi, w2, sc, w2_kmajor=k4.kmajor_spectra(w2))
+        check(bool(torch.equal(got, k4.fft_binmm_int8_plain(xr, xi, w2, sc))),
+              f"fft_binmm_int8 (4-D, D {d}): not bitwise")
+        check(bool(torch.equal(k4.fft_binmm_int8(xr, xi, w2, sc), got)),
+              f"fft_binmm_int8 (4-D, D {d}): the wrapper's own K-major copy differs")
+        n += 2
+    # +-127: templates 0..63 align with row 0 of each bin
+    d, k = 2048, 136
+    xr, xi, w2, sc = operands(2, 64, d, k)
+    for x in (xr, xi):
+        x.copy_(torch.where(x >= 0, 127, -127).to(torch.int8))
+    w2.copy_(torch.where(w2 >= 0, 127, -127).to(torch.int8))
+    w2[:, :, :64] = torch.cat([xr[:, 0], xi[:, 0]], dim=1)[:, :, None]
+    ones = torch.ones_like(sc)
+    w2t = k4.kmajor_spectra(w2)
+    got = k4.fft_binmm_int8(xr, xi, w2, ones, w2_kmajor=w2t)
+    exact = k4.fft_binmm_int8_plain(xr, xi, w2, ones, out_dtype=torch.float32)
+    check(float(exact[0, :, 0, :64].min()) == 2 * d * 127 * 127, "the +-127 case misses its bound")
+    check(bool(torch.equal(got, k4.fft_binmm_int8_plain(xr, xi, w2, ones))),
+          "fft_binmm_int8 (+-127, 2D = 4096): not bitwise")
+    check(bool(torch.equal(k4.fft_binmm_int8(xr, xi, w2, ones, w2_kmajor=w2t), got)),
+          "fft_binmm_int8: two launches differ")
+    n += 2
+    # what TMA cannot take
+    xr, xi, w2, sc = operands(2, 50, 504, 136)
+    for bad, why in (((xr.contiguous(), xi.contiguous(), w2, sc), "rows of 504 bytes"),
+                     ((xr, xi, w2[..., :132].contiguous(), sc[:, :132].contiguous()), "K 132")):
+        try:
+            k4.fft_binmm_int8(*bad)
+            check(False, f"fft_binmm_int8 took {why}")
+        except ValueError:
+            pass
+    say(f"fft_binmm_int8: bitwise at {n} small shapes (2m not a multiple of 64, K not of 256, "
+        f"D 8/40/504/2048, the scorer's 4-D operands, +-127 at 2D = 4096 meeting the bound "
+        f"{2 * d * 127 * 127}); two launches bitwise; rows of 504 bytes and K 132 raise")
+
+
 def small_shape_checks(torch, dev, audio, k1, k2, k3, k4, k5, kp, kd, k8, k9, kc, fp, fs,
                        say):
     """Each kernel once at small ragged shapes (the CPU tests' sizes:
@@ -621,25 +701,7 @@ def small_shape_checks(torch, dev, audio, k1, k2, k3, k4, k5, kp, kd, k8, k9, kc
     except ValueError:
         pass
 
-    # int8 bin matmul, bitwise: K, 2m and 2D not multiples of the tile
-    for shape in ((3, 50, 48), (3, 2, 25, 48)):
-        xq_r = torch.randint(-127, 128, shape, dtype=torch.int8, device=dev)
-        xq_i = torch.randint(-127, 128, shape, dtype=torch.int8, device=dev)
-        w28 = torch.randint(-127, 128, (3, 96, 132), dtype=torch.int8, device=dev)
-        sc8 = torch.rand(3, 132, device=dev) * 1e-3
-        check(bool(torch.equal(k4.fft_binmm_int8(xq_r, xq_i, w28, sc8),
-                               k4.fft_binmm_int8_plain(xq_r, xq_i, w28, sc8))),
-              f"fft_binmm_int8 (small, {shape}): not bitwise")
-
-    # ... and at the log-mel width D = 504 (rows only 8-byte aligned)
-    for shape in ((3, 50, 504), (3, 2, 25, 504)):
-        xq_r = torch.randint(-127, 128, shape, dtype=torch.int8, device=dev)
-        xq_i = torch.randint(-127, 128, shape, dtype=torch.int8, device=dev)
-        w28 = torch.randint(-127, 128, (3, 1008, 132), dtype=torch.int8, device=dev)
-        sc8 = torch.rand(3, 132, device=dev) * 1e-3
-        check(bool(torch.equal(k4.fft_binmm_int8(xq_r, xq_i, w28, sc8),
-                               k4.fft_binmm_int8_plain(xq_r, xq_i, w28, sc8))),
-              f"fft_binmm_int8 (small, {shape}): not bitwise")
+    int8_checks(torch, dev, k4, fs, say)
 
     # kernel 1 at 30 small shapes of windowed audio frames (white noise
     # puts deep cancellations into single DFT bins, which the few-bin low
@@ -975,11 +1037,8 @@ def mel_kernel_checks(torch, M, dev, wavs, nvalid, valid, frames2, bank_mel, rec
     g = torch.cat([cmat, -smat], dim=1).contiguous()
     xr, xi = k3.fft_block_dft(fm.binary.to(torch.bfloat16), g, nfft_s, hop, nblk)
     xq_r, xq_i, sc8 = fs.quantize_block_spectra(xr, xi, fbank8.w2_scale)
-    y8 = k4.fft_binmm_int8(xq_r, xq_i, fbank8.w2, sc8)
-    check(bool(torch.equal(y8, k4.fft_binmm_int8_plain(xq_r, xq_i, fbank8.w2, sc8))),
-          "fft_binmm_int8 (D=504): not bitwise")
-    ms_8 = time_ms(torch, lambda: k4.fft_binmm_int8(xq_r, xq_i, fbank8.w2, sc8))
     m = B * nblk
+    M.record_int8(k4, fbank8, xq_r, xq_i, sc8, m, INT8_MEL)
 
     # the bf16 bin matmul at D = 504 on the log-mel scan's own block
     # spectra and bf16 bank: the last k tile of each half is partial
@@ -1004,12 +1063,8 @@ def mel_kernel_checks(torch, M, dev, wavs, nvalid, valid, frames2, bank_mel, rec
         2 * (2 * m) * (2 * d) * K * bins_m, BF16_FLOPS, shape=BINMM_MEL,
     )
     del y4, y4_ref, x2, fbank16
-    b8, _ = bound_ms(2 * (nfft_s // 2 + 1) * m * d + fbank8.w2.numel() + sc8.numel() * 4
-                     + 2 * (nfft_s // 2 + 1) * m * K * 2,
-                     2 * (2 * m) * (2 * d) * K * (nfft_s // 2 + 1), INT8_OPS)
     say(f"at D = 504: pair_llr max error {err_p:.3g} (1e-5 x {ref_p:.4g} allowed) "
-        f"{ms_p:.4f} ms (100 launches); fft_binmm_int8 bitwise {ms_8:.4f} ms (bound "
-        f"{b8:.4f} ms)")
+        f"{ms_p:.4f} ms (100 launches)")
 
 
 def main() -> int:
@@ -1137,6 +1192,36 @@ def main() -> int:
             f"(tolerance {tol}) kernel {ms:.4f} ms "
             f"plain {plain_ms:.4f} ms library {lib_ms if lib_ms is None else round(lib_ms, 4)} "
             f"ms bound {bms:.4f} ms ({by}{extra})")
+
+    def record_int8(k4, fbank8, xq_r, xq_i, sc8, m_, shape):
+        """Kernel 6 on the scan's own operands (the bank's K-major copy,
+        the padded block spectra): bitwise against its plain version,
+        two launches bitwise equal; timed over loops of 100 launches;
+        no PyTorch call computes a batched int8 x int8 -> int32 product."""
+        bins_, d_ = xq_r.shape[0], xq_r.shape[-1]
+        check(tuple(fbank8.w2_kmajor.shape) == (bins_, 2, K, k4.int8_row_width(d_))
+              and xq_r.stride(-2) == k4.int8_row_width(d_),
+              f"int8 operands: w2_kmajor {tuple(fbank8.w2_kmajor.shape)}, xr strides "
+              f"{xq_r.stride()}")
+        run = lambda: k4.fft_binmm_int8(xq_r, xq_i, fbank8.w2, sc8,  # noqa: E731
+                                        w2_kmajor=fbank8.w2_kmajor)
+        y8 = run()
+        y8_ref = k4.fft_binmm_int8_plain(xq_r, xq_i, fbank8.w2, sc8)
+        check(bool(torch.equal(y8, y8_ref)), f"fft_binmm_int8 ({shape}): not bitwise")
+        check(bool(torch.equal(run(), y8)), f"fft_binmm_int8 ({shape}): two launches differ")
+        record(
+            SimpleNamespace(NAME=k4.INT8_NAME, SOURCE=k4.INT8_SOURCE, REPLACES=k4.INT8_REPLACES),
+            float((y8.float() - y8_ref.float()).abs().max()), "bitwise",
+            time_ms(torch, run, loop=100),
+            time_ms(torch, lambda: k4.fft_binmm_int8_plain(xq_r, xq_i, fbank8.w2, sc8)),
+            None,
+            2 * bins_ * m_ * d_ + fbank8.w2.numel() + sc8.numel() * 4 + 2 * bins_ * m_ * K * 2,
+            2 * (2 * m_) * (2 * d_) * K * bins_, INT8_OPS, shape=shape,
+        )
+        share = rows[-1]["bound_ms"] / rows[-1]["ms"]
+        say(f"fft_binmm_int8 ({shape}): one launch between the events (with the wrapper's "
+            f"host time) {time_ms(torch, run):.4f} ms; kernel {share:.3f} of its bound")
+
 
     # kernel 1: response planes (tolerances: check_planes)
     planes = k1.edge_response_planes(frames2, fcfg.nfft)
@@ -1299,19 +1384,8 @@ def main() -> int:
     # rounding)
     fbank8 = fs.build_fft_bank(filters_to_flat(wf), cf, mm_dtype=torch.int8)
     xq_r, xq_i, sc8 = fs.quantize_block_spectra(xr, xi, fbank8.w2_scale)
-    y8 = k4.fft_binmm_int8(xq_r, xq_i, fbank8.w2, sc8)
-    y8_ref = k4.fft_binmm_int8_plain(xq_r, xq_i, fbank8.w2, sc8)
-    check(bool(torch.equal(y8, y8_ref)), "fft_binmm_int8: not bitwise")
-    record(
-        SimpleNamespace(NAME=k4.INT8_NAME, SOURCE=k4.INT8_SOURCE, REPLACES=k4.INT8_REPLACES),
-        float((y8.float() - y8_ref.float()).abs().max()), "bitwise",
-        time_ms(torch, lambda: k4.fft_binmm_int8(xq_r, xq_i, fbank8.w2, sc8)),
-        time_ms(torch, lambda: k4.fft_binmm_int8_plain(xq_r, xq_i, fbank8.w2, sc8)),
-        None,      # PyTorch has no batched int8 x int8 -> int32 product
-        2 * bins * m * d + fbank8.w2.numel() + sc8.numel() * 4 + 2 * bins * m * K * 2,
-        2 * (2 * m) * (2 * d) * K * bins, INT8_OPS,
-    )
-    del y8, y8_ref, xq_r, xq_i
+    record_int8(k4, fbank8, xq_r, xq_i, sc8, m, INT8_BENCH)
+    del xq_r, xq_i
 
     # pair LLR tiles of the verify-the-winner rescore: B x top-K peaks,
     # windows of m_seg = L + band frames rounded up to 8
@@ -1401,7 +1475,8 @@ def main() -> int:
     templates_mel = rng.uniform(0.01, 0.99, (K, L, mf, 8)).astype(np.float32)
     background_mel = rng.uniform(0.01, 0.99, (mf, 8)).astype(np.float32)
     bank_mel = bank_from_numpy(templates_mel, background_mel, [f"k{i}" for i in range(K)], dev)
-    mods = SimpleNamespace(C=C, fp=fp, fs=fs, k1=k1, k3=k3, k4=k4, kp=kp, k8=k8, k9=k9)
+    mods = SimpleNamespace(C=C, fp=fp, fs=fs, k1=k1, k3=k3, k4=k4, kp=kp, k8=k8, k9=k9,
+                           record_int8=record_int8)
     mel_kernel_checks(torch, mods, dev, wavs, nvalid, valid, frames2, bank_mel, record, say)
     torch.cuda.empty_cache()
 
@@ -1450,11 +1525,17 @@ def main() -> int:
         f"with the bank build {wall:.4f} s); mean device time per batch "
         f"({ctr['batches']:.0f} batches): {stages} (CUDA events); launches {counts}")
 
-    def bank_build(b):
-        """What ``detect_corpus_stream`` does before its loop (bf16 bank)."""
+    def bank_build(b, int8_dtw=False):
+        """What ``detect_corpus_stream`` does before its loop: the bf16
+        bank, or (``int8_dtw``) the int8 bank with its K-major copy and
+        the rescore's bf16 filters."""
         def build():
             w_, c_ = b.llr()
-            return fs.build_fft_bank(filters_to_flat(w_), c_, mm_dtype=None)
+            if not int8_dtw:
+                return fs.build_fft_bank(filters_to_flat(w_), c_, mm_dtype=None)
+            w_rows_, _c_rows = b.llr_rows()
+            return (fs.build_fft_bank(filters_to_flat(w_), c_, mm_dtype=torch.int8),
+                    filters_to_flat(w_rows_).to(torch.bfloat16).contiguous())
         return build
 
     report_busy(torch, say, "scan",
@@ -1487,7 +1568,8 @@ def main() -> int:
                  "fft_idft", "pair_llr", "banded_dtw"):
         check(counts.get(name, 0) > 0, f"{name} was not launched by the DTW + int8 scan")
     check(counts.get("fft_binmm", 0) == 0, "the int8 scan launched the bf16 bin matmul")
-    take_launches(rows, ("fft_binmm_int8", "pair_llr", "banded_dtw"), counts)
+    take_launches(rows, ("pair_llr", "banded_dtw"), counts)
+    take_launches(rows, ("fft_binmm_int8",), counts, shape=INT8_BENCH)
     ctr = res.counters
     stages = " ".join(
         f"{s} {ctr.get(f'device_ms_{s}', 0.0) / ctr['batches']:.3f} ms"
@@ -1498,6 +1580,9 @@ def main() -> int:
         f"loop {ctr['time_scan_s']:.4f} s; with the bank build {wall:.4f} s); mean device "
         f"time per batch ({ctr['batches']:.0f} batches): {stages} (CUDA events); "
         f"launches {counts}")
+    report_busy(torch, say, "DTW + int8 scan",
+                lambda: detect_corpus_stream(corpus, bank, dtw_cfg, target_phone="aa"),
+                bank_build(bank, int8_dtw=True), ctr)
     ref = detect_corpus_stream(corpus, bank, dtw_cfg, target_phone="aa", plain=True)
     check_scan_scores(res.detections, ref.detections, flips["default"], m_seg, 1e-4,
                       "DTW + int8 scan", say)
@@ -1548,6 +1633,8 @@ def main() -> int:
         if not dkw:
             take_launches(rows, ("frontend_planes_mel", "radix_counts", "binspread"), counts)
             take_launches(rows, ("fft_binmm",), counts, shape=BINMM_MEL)
+        else:
+            take_launches(rows, ("fft_binmm_int8",), counts, shape=INT8_MEL)
         stages = " ".join(
             f"{s_} {ctr.get(f'device_ms_{s_}', 0.0) / ctr['batches']:.3f} ms"
             for s_ in ("frontend", "score", "nms", "dtw") if f"device_ms_{s_}" in ctr

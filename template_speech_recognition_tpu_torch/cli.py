@@ -11,8 +11,8 @@ and the one JSON line printed match the reference's ``detect`` and
 ``--int8-spectra``, ``--exact`` (int32 scores), ``--score-backend`` and
 ``evaluate``'s ``--artifacts`` (``roc.npz``, ``detections.npz``,
 ``metrics.json``).  ``--manifest`` and ``--tensorboard`` are not ported
-yet and raise; the other subcommands are later work (ROADMAP.md Queue 1,
-items 9-10).
+yet and raise; the other subcommands are later work (ROADMAP.md Queue 1:
+``bench`` item 1, ``classify`` item 4, ``train`` item 5).
 """
 
 from __future__ import annotations
@@ -71,7 +71,7 @@ def _scan(args):
     if args.manifest:
         raise NotImplementedError(
             "--manifest: scan resume is not ported yet (ROADMAP.md Queue 1, "
-            "item 6, 'manifest resume')"
+            "item 2, 'Manifest resume')"
         )
     cfg = _load_config(args)
     corpus = _build_corpus(args.corpus, args.seed)
@@ -108,7 +108,7 @@ def cmd_evaluate(args) -> int:
     if args.tensorboard:
         raise NotImplementedError(
             "--tensorboard: TensorBoard scalars are not ported yet (ROADMAP.md "
-            "Queue 1, item 12)"
+            "Queue 1, item 8, 'utils/ and what is left')"
         )
     cfg, result = _scan(args)
     metrics = evaluate_detections(result, cfg.detect.match_tolerance)

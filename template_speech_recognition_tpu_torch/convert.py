@@ -11,6 +11,7 @@ import torch
 
 from template_speech_recognition_tpu_torch.detect.fft_scorer import FFTBank
 from template_speech_recognition_tpu_torch.models.bank import TemplateBank
+from template_speech_recognition_tpu_torch.ops.fft_binmm_kernel import kmajor_spectra
 from template_speech_recognition_tpu_torch.utils.device import resolve_device
 
 
@@ -39,10 +40,14 @@ def fft_bank_from_numpy(w2, c, length: int, nfft: int, d: int,
                         device=None, w2_scale=None) -> FFTBank:
     """A JAX-built ``FFTBank``'s spectra ``w2`` [bins, 2D, K] (dtype
     kept: float32, bfloat16 or int8), offsets ``c`` [K] and, for int8
-    spectra, their scales ``w2_scale`` [bins, K]."""
+    spectra, their scales ``w2_scale`` [bins, K]; int8 spectra also get
+    their K-major copy (``FFTBank.w2_kmajor``), built here once."""
     dev = resolve_device(device)
+    w2t = _tensor(w2, dev)
+    quant = w2_scale is not None
     return FFTBank(
-        w2=_tensor(w2, dev), c=_tensor(c, dev, torch.float32),
+        w2=w2t, c=_tensor(c, dev, torch.float32),
         length=int(length), nfft=int(nfft), d=int(d),
-        w2_scale=None if w2_scale is None else _tensor(w2_scale, dev, torch.float32),
+        w2_scale=_tensor(w2_scale, dev, torch.float32) if quant else None,
+        w2_kmajor=kmajor_spectra(w2t) if quant else None,
     )

@@ -38,6 +38,8 @@ from template_speech_recognition_tpu_torch.ops.fft_binmm_kernel import (
     fft_binmm_int8,
     fft_binmm_int8_plain,
     fft_binmm_plain,
+    int8_row_width,
+    kmajor_spectra,
 )
 from template_speech_recognition_tpu_torch.ops.fft_dft_kernel import (
     fft_block_dft,
@@ -64,8 +66,11 @@ class FFTBank:
     """Frequency-domain template bank: ``w2`` [bins, 2D, K] spectra
     (real stacked on imaginary along the contraction axis) and ``c``
     [K] score offsets.  In the int8 mode ``w2`` holds the quantized
-    spectra and ``w2_scale`` [bins, K] f32 their dequantization
-    factors."""
+    spectra, ``w2_scale`` [bins, K] f32 their dequantization factors
+    and ``w2_kmajor`` [bins, 2, K, Dp] their K-major copy, rows padded
+    to 16 bytes (``ops.fft_binmm_kernel.kmajor_spectra``): the int8
+    kernel's operand, built once here so the scan never transposes W2
+    (+336 MB of device memory at K 1024, D 2048, 80 bins)."""
 
     w2: torch.Tensor
     c: torch.Tensor
@@ -73,6 +78,7 @@ class FFTBank:
     nfft: int
     d: int
     w2_scale: torch.Tensor | None = None
+    w2_kmajor: torch.Tensor | None = None
 
     @property
     def k(self) -> int:
@@ -138,8 +144,9 @@ def build_fft_bank(w: torch.Tensor, c: torch.Tensor, nfft: int | None = None,
         w2f = _bank_spectra(w.reshape(k, length, d), nfft, torch.float32)
         scale = torch.clamp(w2f.abs().amax(dim=1), min=1e-30) / 127.0   # [bins, K]
         w2q = torch.clamp(torch.round(w2f / scale[:, None, :]), -127, 127)
-        return FFTBank(w2=w2q.to(torch.int8).contiguous(), c=c.to(torch.float32),
-                       length=length, nfft=nfft, d=d, w2_scale=scale.contiguous())
+        w2q = w2q.to(torch.int8).contiguous()
+        return FFTBank(w2=w2q, c=c.to(torch.float32), length=length, nfft=nfft, d=d,
+                       w2_scale=scale.contiguous(), w2_kmajor=kmajor_spectra(w2q))
     w2 = _bank_spectra(w.reshape(k, length, d), nfft, mm_dtype)
     return FFTBank(w2=w2.contiguous(), c=c.to(torch.float32), length=length,
                    nfft=nfft, d=d)
@@ -149,15 +156,23 @@ def quantize_block_spectra(xr, xi, w2_scale):
     """Dynamic per-bin symmetric int8 quantization of the block spectra
     ``xr``, ``xi`` [bins, ...] over their whole extent -> (int8 xr, int8
     xi, ``sc`` [bins, K] f32), where ``sc`` folds the block scale into
-    the bank's ``w2_scale`` for the bin matmul's flush."""
+    the bank's ``w2_scale`` for the bin matmul's flush.
+
+    xq_r and xq_i are views ``[..., :D]`` of one zero-padded buffer
+    whose rows are D rounded up to 16 bytes, the strides the int8
+    kernel's TMA loads take (log-mel D = 504)."""
     dims = tuple(range(1, xr.dim()))
     xr32, xi32 = xr.to(torch.float32), xi.to(torch.float32)
     sx = torch.clamp(
         torch.maximum(xr32.abs().amax(dim=dims), xi32.abs().amax(dim=dims)), min=1e-30
     ) / 127.0                                                   # [bins]
     sxb = sx.reshape((-1,) + (1,) * len(dims))
-    xq_r = torch.clamp(torch.round(xr32 / sxb), -127, 127).to(torch.int8)
-    xq_i = torch.clamp(torch.round(xi32 / sxb), -127, 127).to(torch.int8)
+    d = xr.shape[-1]
+    buf = torch.zeros((2,) + tuple(xr.shape[:-1]) + (int8_row_width(d),),
+                      dtype=torch.int8, device=xr.device)
+    xq_r, xq_i = buf[0, ..., :d], buf[1, ..., :d]
+    xq_r.copy_(torch.clamp(torch.round(xr32 / sxb), -127, 127))
+    xq_i.copy_(torch.clamp(torch.round(xi32 / sxb), -127, 127))
     return xq_r, xq_i, sx[:, None] * w2_scale
 
 
@@ -206,7 +221,8 @@ def fft_sliding_scores(
     xr, xi = dft_fn(x, g, nfft, hop, nblk)                     # [bins, B, nblk, D]
     if quant:
         xq_r, xq_i, sc = quantize_block_spectra(xr, xi, bank.w2_scale)
-        ycat = binmm_int8_fn(xq_r, xq_i, bank.w2, sc, out_dtype=mm)
+        ycat = binmm_int8_fn(xq_r, xq_i, bank.w2, sc, out_dtype=mm,
+                             w2_kmajor=bank.w2_kmajor)
     else:
         ycat = binmm_fn(xr, xi, bank.w2)                       # [2, bins, m, K]
     icmat, ismat = _idft_mats(nfft, hop, mm, dev)

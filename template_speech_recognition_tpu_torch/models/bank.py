@@ -65,7 +65,7 @@ class TemplateBank:
         if "parts" in z.files:
             raise NotImplementedError(
                 "parts-coded banks are not ported yet (ROADMAP.md Queue 1, "
-                "item 9)"
+                "item 3, 'Training (config 3)')"
             )
         dev = resolve_device(device)
         return cls(

@@ -77,7 +77,7 @@ def detect_corpus(
     if manifest is not None:
         raise NotImplementedError(
             "manifest: scan resume is not ported yet (ROADMAP.md Queue 1, "
-            "item 6, 'manifest resume')"
+            "item 2, 'Manifest resume')"
         )
     dcfg = cfg.detect
     if not dcfg.exact_scores and dcfg.score_backend in ("fft", "conv"):

@@ -10,17 +10,27 @@ Counterpart of ``template_speech_recognition_tpu.scan``
   -> batched NMS/top-K [-> batched DTW rescore]`` with no host sync
   inside; ``int8_spectra`` runs the scorer on int8 template spectra;
 * tail batches shrink to the next power of two that holds their rows;
-* a window of ``DEPTH`` dispatched batches stays in flight: each
-  batch's waveforms go up from pinned host memory and its fixed-size
-  (s, t, k) triple comes back through ONE ``non_blocking`` copy into
-  pinned host memory, read only when the window is full.
+* each batch's waveforms go up from pinned host memory; its fixed-size
+  (s, t, k) triple stays on the device until ``SCAN_FETCH_GROUP``
+  (default 8, as the reference) consecutive batches have run, whose
+  triples are then packed into one array and come back through ONE
+  ``non_blocking`` copy into pinned host memory (a fetch);
+* at most ``SCAN_PIPELINE_DEPTH`` (default 3, as the reference) fetches
+  stay in flight: the oldest is read when one more starts.  With
+  ``SCAN_FETCH_GROUP=1`` a fetch is one batch, the reference's
+  per-batch pipeline.  The packing is lossless (times and template ids
+  are exact in float32), so the knobs change no detection.  Unlike the
+  reference's grouped mode, a grouped batch is copied to the host once
+  (in its group's fetch, not also on its own), and the depth still
+  bounds the work in flight: at most depth x group + group - 1 batches.
 
 As in the reference, the Pallas scorer and exact scores are not
 options of the stream (``pipeline.detect_corpus`` routes them to its
 per-utterance loop) and raise ``ValueError``.  Options of the reference
 that are not ported yet (manifest resume, PCM16 upload, per-process
-feeding) raise ``NotImplementedError`` naming their ROADMAP item; none
-is ignored.
+feeding) raise ``NotImplementedError`` naming their ROADMAP item.
+``SCAN_DEBUG`` (the reference's dispatch and drain prints on stderr)
+is ignored; no other option is.
 """
 
 from __future__ import annotations
@@ -55,8 +65,6 @@ from template_speech_recognition_tpu_torch.ops.layout import filters_to_flat
 from template_speech_recognition_tpu_torch.utils.metrics import StageCounters
 
 STAGES = ("frontend", "score", "nms", "dtw")
-# dispatched batches in flight before the oldest one's result is read
-DEPTH = 3
 
 
 def bucket_length(n: int, quantum: int = 16384) -> int:
@@ -218,7 +226,7 @@ def _check_options(cfg: PipelineConfig, manifest) -> None:
     if manifest is not None:
         raise NotImplementedError(
             "manifest: scan resume is not ported yet (ROADMAP.md Queue 1, "
-            "item 6, 'manifest resume')"
+            "item 2, 'Manifest resume')"
         )
 
 
@@ -280,27 +288,33 @@ def stream_scan(
     local_rows=None,
 ) -> CorpusDetections:
     """bucket -> batch -> ``compute(wavs [B, S], valid [B], marks) ->
-    (s, t, k)`` on ``device`` -> windowed fetch -> ``DetectionSet``."""
+    (s, t, k)`` on ``device`` -> grouped, windowed fetch (the module's
+    docstring) -> ``DetectionSet``."""
     if local_rows is not None:
         raise NotImplementedError(
             "local_rows: per-process lazy feeding is not ported yet "
-            "(ROADMAP.md Queue 1, item 6, 'lazy feeding')"
+            "(ROADMAP.md Queue 1, item 7, 'parallel/ on torch.distributed')"
         )
     if os.environ.get("SCAN_UPLOAD_INT16", "0") == "1":
         raise NotImplementedError(
             "SCAN_UPLOAD_INT16: PCM16 upload is not ported yet (ROADMAP.md "
-            "Queue 1, item 6, 'PCM16 upload')"
+            "Queue 1, item 2, 'PCM16 upload')"
         )
+    # the reference's fetch knobs, read as it reads them
+    depth = max(int(os.environ.get("SCAN_PIPELINE_DEPTH", "3")), 1)
+    group_n = max(int(os.environ.get("SCAN_FETCH_GROUP", "8")), 1)
     cuda = device.type == "cuda"
     stats = StageCounters()
     results: dict[int, tuple] = {}
     labels: list[np.ndarray] = []
     utt_ids: list[str] = []
     pending: dict[int, list] = {}       # pad_samples -> [(gidx, wav)]
-    inflight = collections.deque()
+    open_grp: list = []                 # batches run, not yet in a fetch
+    inflight = collections.deque()      # fetches started, not yet read
     device_ms = collections.defaultdict(float)
     total_samples = 0
     n_batches = 0
+    n_fetches = 0
     stats.start("scan")
 
     def flush(items, pad):
@@ -322,35 +336,60 @@ def stream_scan(
             marks,
         )
         # times and template ids are exact in float32 (< 2**24): one
-        # packed array, one device->host copy per batch
+        # packed [3, B, top-K] array a batch, left on the device
         packed = torch.stack([s, t.to(torch.float32), k.to(torch.float32)])
+        return ([g for g, _w in items], packed, marks, (wavs, vs))
+
+    def start_fetch():
+        """Pack the open group's triples into one array (zero-padded to
+        the group's largest batch and top-K) and start its one copy to
+        the host."""
+        nonlocal n_fetches
+        if not open_grp:
+            return
+        if len(open_grp) == 1:
+            arr = open_grp[0][1][None]
+        else:
+            bmax = max(b[1].shape[1] for b in open_grp)
+            kmax = max(b[1].shape[2] for b in open_grp)
+            arr = torch.zeros((len(open_grp), 3, bmax, kmax), dtype=torch.float32,
+                              device=device)
+            for i, (_g, packed, _m, _w) in enumerate(open_grp):
+                arr[i, :, : packed.shape[1], : packed.shape[2]] = packed
         done = None
         if cuda:
-            host = torch.empty(packed.shape, dtype=torch.float32, pin_memory=True)
-            host.copy_(packed, non_blocking=True)
+            host = torch.empty(arr.shape, dtype=torch.float32, pin_memory=True)
+            host.copy_(arr, non_blocking=True)
             done = torch.cuda.Event()
             done.record()
         else:
-            host = packed
-        return ([g for g, _w in items], host, done, marks, (wavs, vs))
+            host = arr
+        metas = [(g, tuple(packed.shape[1:]), marks, keep)
+                 for g, packed, marks, keep in open_grp]
+        inflight.append((metas, host, done))
+        open_grp.clear()
+        n_fetches += 1
 
     def drain(flight):
-        gidxs, host, done, marks, _keep_alive = flight
+        metas, host, done = flight
         if done is not None:
             done.synchronize()
-        for (_n0, e0), (name, e1) in zip(marks or [], (marks or [])[1:]):
-            device_ms[name] += e0.elapsed_time(e1)
         a = host.numpy()
-        s = np.asarray(a[0], np.float32)
-        t = a[1].astype(np.int32)
-        k = a[2].astype(np.int32)
-        for row, g in enumerate(gidxs):
-            results[g] = (s[row], t[row], k[row])
+        for i, (gidxs, (_b, kb), marks, _keep_alive) in enumerate(metas):
+            for (_n0, e0), (name, e1) in zip(marks or [], (marks or [])[1:]):
+                device_ms[name] += e0.elapsed_time(e1)
+            s = np.asarray(a[i, 0, :, :kb], np.float32)
+            t = a[i, 1, :, :kb].astype(np.int32)
+            k = a[i, 2, :, :kb].astype(np.int32)
+            for row, g in enumerate(gidxs):
+                results[g] = (s[row], t[row], k[row])
 
-    def submit(flight):
-        inflight.append(flight)
-        while len(inflight) > DEPTH:
-            drain(inflight.popleft())
+    def submit(batch):
+        open_grp.append(batch)
+        if len(open_grp) == group_n:
+            start_fetch()
+            while len(inflight) > depth:
+                drain(inflight.popleft())
 
     for gidx, (uid, wav, phones) in enumerate(corpus.iter_utterances()):
         nf = len(wav)
@@ -378,6 +417,7 @@ def stream_scan(
     for pad in sorted(pending):
         submit(flush(pending[pad], pad))
         n_batches += 1
+    start_fetch()
     while inflight:
         drain(inflight.popleft())
     if not utt_ids:
@@ -387,6 +427,7 @@ def stream_scan(
     dets = ev.DetectionSet.from_per_utterance(per_utt)
     stats.stop("scan")
     stats.add("batches", float(n_batches))
+    stats.add("fetches", float(n_fetches))
     stats.add("utterances", float(len(utt_ids)))
     stats.add("audio_seconds", total_samples / corpus.sample_rate)
     stats.add("detections", float(len(dets.scores)))

@@ -315,6 +315,104 @@ def test_manifest_and_pcm16_upload_raise(synth, tbank, monkeypatch):
         tscan.detect_corpus_stream(TAdapter(synth), tbank, cfg, "aa")
 
 
+@pytest.fixture(scope="module")
+def jref3(synth, jbank):
+    """The reference stream at batch 3 over the 7 utterances (three
+    batches, the last a tail), its fetch knobs at their defaults."""
+    env = {k: os.environ.pop(k) for k in ("SCAN_PIPELINE_DEPTH", "SCAN_FETCH_GROUP")
+           if k in os.environ}
+    try:
+        jcfg = JC.PipelineConfig(detect=JC.DetectConfig(batch_size=3))
+        return jax_detect_corpus_stream(SyntheticAdapter(synth), jbank, jcfg, "aa")
+    finally:
+        os.environ.update(env)
+
+
+@pytest.mark.parametrize("knob,value,fetches", [
+    ("SCAN_PIPELINE_DEPTH", "1", 1), ("SCAN_PIPELINE_DEPTH", "2", 1),
+    ("SCAN_PIPELINE_DEPTH", "0", 1),
+    ("SCAN_FETCH_GROUP", "1", 3), ("SCAN_FETCH_GROUP", "2", 2),
+    ("SCAN_FETCH_GROUP", "3", 1), ("SCAN_FETCH_GROUP", "8", 1),
+])
+def test_scan_fetch_knobs_keep_the_reference_detections(synth, jbank, tbank, jref3,
+                                                        monkeypatch, knob, value, fetches):
+    """The reference's fetch knobs, read with its meaning: each setting
+    leaves the detections equal to the reference stream's (times and
+    template ids identical, scores at rtol 1e-5), and to the port's own
+    under the same setting of the reference; ``SCAN_FETCH_GROUP`` sets
+    how many batches one fetch carries (three batches: 3 fetches at 1, 2
+    at 2, one from 3 up; the default is 8), ``SCAN_PIPELINE_DEPTH`` how
+    many fetches stay in flight (0 reads as 1, as in the reference)."""
+    monkeypatch.setenv(knob, value)
+    tcfg = TC.PipelineConfig(detect=TC.DetectConfig(batch_size=3))
+    got = tscan.detect_corpus_stream(TAdapter(synth), tbank, tcfg, "aa")
+    assert got.counters["batches"] == 3
+    assert got.counters["fetches"] == fetches
+    assert len(got.detections.scores) == len(jref3.detections.scores) > 0
+    for (sg, tg, kg), (sw, tw, kw) in zip(_per_utt(got), _per_utt(jref3)):
+        np.testing.assert_array_equal(tg, tw)
+        np.testing.assert_array_equal(kg, kw)
+        np.testing.assert_allclose(sg, sw, rtol=1e-5)
+    if knob == "SCAN_FETCH_GROUP" and value == "2":
+        jcfg = JC.PipelineConfig(detect=JC.DetectConfig(batch_size=3))
+        want = jax_detect_corpus_stream(SyntheticAdapter(synth), jbank, jcfg, "aa")
+        for (sg, tg, kg), (sw, tw, kw) in zip(_per_utt(got), _per_utt(want)):
+            np.testing.assert_array_equal(tg, tw)
+            np.testing.assert_array_equal(kg, kw)
+            np.testing.assert_allclose(sg, sw, rtol=1e-5)
+
+
+def test_scan_fetch_group_is_bitwise_and_mixes_top_k(synth, tbank, monkeypatch):
+    """Packing batches of different top-K (two buckets: 3 s and 6 s
+    utterances) and sizes (a tail of 1) into one fetch is lossless: the
+    detections are bitwise those of per-batch fetching."""
+    adapter = TAdapter(synth)
+
+    class Mixed:
+        sample_rate = adapter.sample_rate
+
+        def iter_utterances(self):
+            for i, (uid, wav, ph) in enumerate(adapter.iter_utterances()):
+                yield uid, (np.concatenate([wav, wav]) if i % 2 else wav), ph
+
+    tcfg = TC.PipelineConfig(detect=TC.DetectConfig(batch_size=2, top_k=2,
+                                                    top_k_per_second=4.0))
+    assert {tcfg.detect.effective_top_k(p, adapter.sample_rate)
+            for p in (16384, 32768, 49152)} == {5, 9, 13}
+    runs = {}
+    for group in ("1", "8"):
+        monkeypatch.setenv("SCAN_FETCH_GROUP", group)
+        runs[group] = tscan.detect_corpus_stream(Mixed(), tbank, tcfg, "aa")
+    a, b = runs["1"].detections, runs["8"].detections
+    assert runs["1"].counters["fetches"] == runs["1"].counters["batches"] >= 4
+    assert runs["8"].counters["fetches"] == 1
+    assert len(a.scores) > 0
+    for name in ("scores", "times", "template_ids", "utterance_ids"):
+        np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+
+
+def test_refusals_name_a_roadmap_item():
+    """Every ``NotImplementedError`` of the port that names a ROADMAP
+    item as "Queue 1, item N, 'title'" names an item that exists and
+    carries that title."""
+    with open(os.path.join(REPO, "ROADMAP.md")) as f:
+        roadmap = f.read().replace("`", "")
+    q1 = roadmap[roadmap.index("### Queue 1"):roadmap.index("### Queue 2")]
+    items = dict(re.findall(r"^(\d+)\. (.*?)(?=^\d+\. |\Z)", q1, re.M | re.S))
+    cites = []
+    for dirpath, _dirs, files in os.walk(os.path.join(REPO, PKG)):
+        for name in files:
+            if name.endswith(".py"):
+                with open(os.path.join(dirpath, name)) as f:
+                    src = re.sub(r'"\s*\n\s*f?"', "", f.read())
+                cites += re.findall(r"ROADMAP\.md Queue 1, item (\d+), '([^']+)'", src)
+    assert len(cites) >= 7, cites
+    for num, title in cites:
+        assert num in items and title.replace("`", "") in items[num], (num, title)
+    with open(os.path.join(REPO, PKG, "cli.py")) as f:
+        assert not re.search(r"item (6|9|12)\b", f.read())
+
+
 def test_config_json_round_trip():
     cfg = TC.PipelineConfig(detect=TC.DetectConfig(batch_size=5, top_k=9))
     assert TC.from_json(TC.to_json(cfg)) == cfg

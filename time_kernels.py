@@ -1,14 +1,19 @@
 """Times kernel 1 (log-magnitude and mel mode), kernel 2 (select +
-binarize + spread), kernel 5 (the iDFT) and kernel 10 (the direct
-correlation) of the port in one or more checkouts, at the streaming
-scan's bench shape, by one method: ``chip_smoke.time_ms`` over loops of
-100 launches (device time; kernel 10, milliseconds a launch, over loops
-of 10) and over one launch (the wrapper's host time included).  Kernel
-2 takes random normal planes [4, 8, 3072, 256] with 2998 valid frames
-(30 s), q 0.98, rf = rt = 1.  Kernel 10 takes the reference's bench
-shape (B 8, T 3000, K 1024, L 32, D 2048) and one utterance of it
-(B 1): random binary bf16 maps at 0.2 density, a random bf16 bank.
-Inputs come from seed 0.
+binarize + spread), kernel 5 (the iDFT), kernel 6 (the int8 bin matmul)
+and kernel 10 (the direct correlation) of the port in one or more
+checkouts, at the streaming scan's bench shape, by one method:
+``chip_smoke.time_ms`` over loops of 100 launches (device time; kernel
+10, milliseconds a launch, over loops of 10) and over one launch (the
+wrapper's host time included).  Kernel 2 takes random normal planes [4,
+8, 3072, 256] with 2998 valid frames (30 s), q 0.98, rf = rt = 1.
+Kernel 6 takes uniform int8 spectra at the scan's shape (bins 80, m 192,
+K 1024) at D = 2048 and at the log-mel D = 504: a checkout whose int8
+bin matmul reads the bank's K-major copy gets it and rows padded to 16
+bytes, as its scan passes them; an older one gets the contiguous
+operands its scan passed.  Kernel 10 takes the reference's bench shape
+(B 8, T 3000, K 1024, L 32, D 2048) and one utterance of it (B 1):
+random binary bf16 maps at 0.2 density, a random bf16 bank.  Inputs
+come from seed 0.
 
     python3 time_kernels.py ROOT [ROOT ...]
 
@@ -31,6 +36,7 @@ N_ROWS, FL, NFFT, SR, N_MELS = 8 * 3072, 400, 512, 16000, 64   # B 8 x T_pad 307
 TWO_BINS, HOP, NBLK, B, K = 160, 128, 24, 8, 1024              # nfft 159, L 32
 T_PAD, F, VALID, QUANTILE = 3072, 256, 2998, 0.98              # kernel 2
 T_CORR, L_CORR, D_CORR, DENSITY = 3000, 32, 2048, 0.2         # kernel 10
+BINS = 80                                                      # kernel 6: m = B x NBLK
 
 
 def one(root: str) -> dict:
@@ -41,6 +47,7 @@ def one(root: str) -> dict:
 
     from template_speech_recognition_tpu_torch.frontend.planes import _dual_ranks
     from template_speech_recognition_tpu_torch.ops import correlation_kernel as k10
+    from template_speech_recognition_tpu_torch.ops import fft_binmm_kernel as k6
     from template_speech_recognition_tpu_torch.ops import fft_idft_kernel as k5
     from template_speech_recognition_tpu_torch.ops import frontend_kernel as k1
     from template_speech_recognition_tpu_torch.ops import selbin_kernel as k2
@@ -65,6 +72,22 @@ def one(root: str) -> dict:
         "select_binspread": lambda: k2.select_binspread(planes, need, valid, 1, 1),
         "fft_idft": lambda: k5.fft_idft(ycat, imat, c, NBLK),
     }
+    for d in (2048, 504):
+        dp = -(-d // 16) * 16
+        buf = torch.zeros((2, BINS, B * NBLK, dp), dtype=torch.int8, device=dev)
+        buf[..., :d] = torch.randint(-127, 128, (2, BINS, B * NBLK, d), dtype=torch.int8,
+                                     device=dev, generator=g)
+        w2 = torch.randint(-127, 128, (BINS, 2 * d, K), dtype=torch.int8, device=dev,
+                           generator=g)
+        sc = torch.rand(BINS, K, device=dev, generator=g) * 1e-4
+        if hasattr(k6, "kmajor_spectra"):
+            xr, xi, w2t = buf[0, ..., :d], buf[1, ..., :d], k6.kmajor_spectra(w2)
+            fn = lambda xr=xr, xi=xi, w2=w2, sc=sc, w2t=w2t: k6.fft_binmm_int8(  # noqa: E731
+                xr, xi, w2, sc, w2_kmajor=w2t)
+        else:
+            xr, xi = buf[0, ..., :d].contiguous(), buf[1, ..., :d].contiguous()
+            fn = lambda xr=xr, xi=xi, w2=w2, sc=sc: k6.fft_binmm_int8(xr, xi, w2, sc)  # noqa: E731
+        calls["fft_binmm_int8" if d == 2048 else "fft_binmm_int8_d504"] = fn
     out = {"root": root}
     for name, fn in calls.items():
         out[name] = {"loop100_ms": time_ms(torch, fn, loop=100), "one_launch_ms": time_ms(torch, fn)}
