@@ -13,8 +13,8 @@
    PyTorch version on the same inputs, with the tolerance stated beside
    each check; times kernel, plain version and one library call with
    CUDA events (median of 10 after 2 warm-ups; the two short DTW
-   kernels, kernels 1, 2 and 5 and the library calls of 1 and 5 over
-   loops of 100 launches, so the wrapper's host time is not timed) and
+   kernels, kernels 1, 2, 3 and 5 and the library calls of 1, 3 and 5
+   over loops of 100 launches, so the wrapper's host time is not timed) and
    computes each kernel's bound (the larger of the least bytes / 3.35
    TB/s and operations / the peak rate of their type).  The log-mel
    scan's kernels (n_mels 64: F = 63, D = 504) follow: kernel 1 in mel
@@ -24,10 +24,14 @@
    not the enqueue; the yardstick is ``torch.kthvalue`` for both ranks,
    which stands for the whole 11-launch select), binarize + spread, the
    layered path against the two-kernel path at the default shape
-   (bitwise), and pair LLR and the int8 and bf16 bin matmuls at D = 504
-   (on the log-mel scan's own spectra and banks, a second ``fft_binmm``
-   and ``fft_binmm_int8`` entry in the kernels line, tagged by
-   ``shape``).  Kernel 6 (TMA + int8 wgmma) takes the bank's K-major
+   (bitwise), and the block DFT, pair LLR and the int8 and bf16 bin
+   matmuls at D = 504 (on the log-mel scan's own map, spectra and banks,
+   a second ``fft_block_dft``, ``fft_binmm`` and ``fft_binmm_int8``
+   entry in the kernels line, tagged by ``shape``).  Kernel 3 (TMA +
+   wgmma, the DFT basis resident in shared memory) is held within one
+   bf16 step of its plain version with two launches bitwise equal at
+   both widths; the map's cast to bf16 that feeds it is timed too.
+   Kernel 6 (TMA + int8 wgmma) takes the bank's K-major
    copy of W2 and block spectra whose rows are padded to 16 bytes; it is
    held bitwise at both shapes (two launches bitwise equal) and timed
    over loops of 100 launches, and bitwise at 54 small shapes (2m not a
@@ -47,7 +51,10 @@
    not a multiple of its 192-start tile, L = 1, 9, 17, 32, 48 and T
    (two launches bitwise equal), the
    TMA + wgmma bin matmul at m = 1, 63, 64, 65, 96 x D = 8, 40, 504 x
-   K = 8, 136 x bins = 1, 3, the 4-D input, the TMA + wgmma iDFT at
+   K = 8, 136 x bins = 1, 3, the 4-D input, the block DFT at three
+   utterances whose last window overruns T x D = 504, 40, 8 x nfft =
+   159, 39, 223, 319 (two launches bitwise equal; nfft 1023, D 500 and
+   a misaligned base raise), the TMA + wgmma iDFT at
    2 bins = 40, 160 x hop = 32, 128, 224 x K = 8, 136, 1024 x m = 1,
    3, 192 and at hop 30, and misaligned base pointers that must raise)
    and holds it against its plain version.  Kernel 2 (16-CTA clusters
@@ -72,7 +79,9 @@
    ``FrontendConfig(nfft=1024)`` runs through both frontend paths to one
    map that differs from the plain run's in at most 1e-3 of its cells
    (the frontend's parity contract), and so do the maps of the whole
-   corpus in both frontend modes;
+   corpus in both frontend modes; the whole scorer is held to the f32
+   plain path and must enqueue behind a queued device sleep without
+   waiting for the device;
 3. drives the scan itself, ``detect_corpus_stream``, at full width over
    19 utterances of 30 s (two batches of 8 and a tail of 3 padded to
    4, whose padding row has no valid frame), with every launch count
@@ -106,9 +115,12 @@
    rescoring (verify-the-winner, f32 filters), whose DTW scores are held
    against the CPU's rescore of the same peaks within 1e-5 x max|score|.
 
-The default and the log-mel scan are each run once more under
-``torch.profiler``: the union of the device intervals in the scan loop,
-set against the untraced loop's wall time, is the device's busy share.
+The default, the DTW + int8 and the log-mel scan are each run once
+more under ``torch.profiler``: the union of the device intervals in
+the scan loop, set against the untraced loop's wall time, is the
+device's busy share; the block DFT's device time a batch and share,
+and the copy kernels' (the map's cast to bf16 among them), are printed
+by name.
 
 Any failed check exits non-zero without printing the result line.  The
 last three lines are the kernels JSON, the card's name and power
@@ -136,13 +148,16 @@ FP32_FLOPS = 67e12         # fp32 outside the tensor cores
 BF16_FLOPS = 989e12        # bf16 tensor cores, dense
 TF32_FLOPS = 495e12        # TF32 tensor cores, dense
 INT8_OPS = 1979e12         # int8 tensor cores, dense
-STEMS = ("frontend_planes", "select_binspread", "fft_gemm", "fft_binmm", "fft_idft",
+STEMS = ("frontend_planes", "select_binspread", "fft_block_dft", "fft_binmm", "fft_idft",
          "banded_dtw", "pair_llr", "fft_binmm_int8", "radix_counts", "binspread", "correlation")
 # kernels each scan must launch (launch-count names)
 SCAN_KERNELS = ("frontend_planes", "select_binspread", "fft_block_dft", "fft_binmm",
                 "fft_idft")
 MEL_KERNELS = ("frontend_planes_mel", "radix_counts", "binspread", "fft_block_dft",
                "fft_binmm", "fft_idft")
+# the two shapes at which the kernels line reports fft_block_dft
+DFT_BENCH = "bench: B 8, T 3072, D 2048, nfft 159"
+DFT_MEL = "log-mel: B 8, T 3072, D 504, nfft 159"
 # the two shapes at which the kernels line reports fft_binmm
 BINMM_BENCH = "bench: bins 80, m 192, D 2048, K 1024"
 BINMM_MEL = "log-mel: bins 80, m 192, D 504, K 1024"
@@ -263,10 +278,16 @@ def report_busy(torch, say, label, run, build, ctr):
     for name, ms in built_names.items():
         names[name] = names.get(name, 0.0) - ms
     top = sorted(names.items(), key=lambda kv: -kv[1])[:5]
-    say(f"{label}: device time in the scan loop {scan_ms:.3f} ms ({scan_ms / ctr['batches']:.3f} "
+    nb = ctr["batches"]
+    dft = sum(ms for n, ms in names.items() if "block_dft" in n)
+    cast = sum(ms for n, ms in names.items() if "direct_copy" in n)
+    say(f"{label}: device time in the scan loop {scan_ms:.3f} ms ({scan_ms / nb:.3f} "
         f"ms a batch; torch.profiler, the bank build's {built:.3f} ms left out) = "
         f"{scan_ms / loop_ms:.3f} of the untraced loop's {loop_ms:.3f} ms; most device time: "
-        + ", ".join(f"{n[:48]} {ms:.3f} ms" for n, ms in top))
+        + ", ".join(f"{n[:48]} {ms:.3f} ms" for n, ms in top)
+        + f"; the block DFT kernel (fft_block_dft) {dft / nb:.4f} ms a batch, "
+          f"{dft / scan_ms:.3f} of the device time; copy kernels (direct_copy: dtype casts, "
+          f"the map's to bf16 among them) {cast / nb:.4f} ms a batch")
 
 
 def bound_ms(nbytes: float, ops: float, rate: float):
@@ -606,6 +627,56 @@ def int8_checks(torch, dev, k4, fs, say):
         f"{2 * d * 127 * 127}); two launches bitwise; rows of 504 bytes and K 132 raise")
 
 
+def dft_checks(torch, dev, k3, fs, say):
+    """Kernel 3 at ragged shapes (the CPU tests' cases): three
+    utterances whose last window overruns T (a read into the next
+    utterance's rows would show), T not a multiple of hop, D 504 / 40 /
+    8 (a partial d tile, a lone one), nfft 159 / 39 / 223 / 319 (319: the
+    basis split into two passes); each within 2^-7 x max|ref| of the
+    plain version and two launches bitwise equal; shapes the kernel
+    cannot take raise."""
+    rng = np.random.default_rng(SEED + 3)
+    n = 0
+    for length, bank_k, t in ((32, 1024, 300), (8, 128, 250), (32, 4096, 500), (64, 1024, 700)):
+        nfft = fs.pick_nfft(length, bank_k)
+        hop = nfft - length + 1
+        nblk = -(-(t - length + 1) // hop)
+        cm, sm = fs._dft_mats(nfft, torch.bfloat16, dev)
+        g = torch.cat([cm, -sm], dim=1).contiguous()
+        for d in (504, 40, 8):
+            x = torch.from_numpy(rng.random((3, t, d)) < 0.3).to(dev, torch.bfloat16)
+            got = k3.fft_block_dft(x, g, nfft, hop, nblk)
+            ref = k3.fft_block_dft_plain(x, g, nfft, hop, nblk)
+            err = max(float((a.float() - r.float()).abs().max()) for a, r in zip(got, ref))
+            top = max(float(r.float().abs().max()) for r in ref)
+            shape = f"B 3, T {t}, D {d}, nfft {nfft}, hop {hop}"
+            check(err <= 2.0 ** -7 * top, f"fft_block_dft ({shape}): {err} > 2^-7 * {top}")
+            check(all(bool(torch.equal(a, c)) for a, c in
+                      zip(got, k3.fft_block_dft(x, g, nfft, hop, nblk))),
+                  f"fft_block_dft ({shape}): two launches differ")
+            n += 1
+    cm, sm = fs._dft_mats(1023, torch.bfloat16, dev)
+    g_big = torch.cat([cm, -sm], dim=1).contiguous()
+    cm, sm = fs._dft_mats(159, torch.bfloat16, dev)
+    g = torch.cat([cm, -sm], dim=1).contiguous()
+    buf = torch.zeros(2 * 300 * 512 + 8, dtype=torch.bfloat16, device=dev)
+    for why, args in (
+        ("nfft 1023", (torch.zeros((2, 600, 64), dtype=torch.bfloat16, device=dev), g_big,
+                       1023, 512, 1)),
+        ("D 500", (torch.zeros((2, 300, 500), dtype=torch.bfloat16, device=dev), g, 159, 128,
+                   3)),
+        ("a base 2 bytes off", (buf[1 : 1 + 2 * 300 * 512].view(2, 300, 512), g, 159, 128, 3)),
+    ):
+        try:
+            k3.fft_block_dft(*args)
+            check(False, f"fft_block_dft took {why}")
+        except ValueError:
+            pass
+    say(f"fft_block_dft: within 2^-7 x max|ref| at {n} ragged shapes (B 3, the last window "
+        f"past T; D 504/40/8; nfft 159/39/223/319, 319 in two passes), two launches bitwise; "
+        f"nfft 1023, D 500 and a misaligned base raise")
+
+
 def small_shape_checks(torch, dev, audio, k1, k2, k3, k4, k5, kp, kd, k8, k9, kc, fp, fs,
                        say):
     """Each kernel once at small ragged shapes (the CPU tests' sizes:
@@ -637,6 +708,7 @@ def small_shape_checks(torch, dev, audio, k1, k2, k3, k4, k5, kp, kd, k8, k9, kc
     for a, r in zip(k3.fft_block_dft(x, g, nfft, hop, nblk),
                     k3.fft_block_dft_plain(x, g, nfft, hop, nblk)):
         close(a, r, tol, "fft_block_dft")
+    dft_checks(torch, dev, k3, fs, say)
     bins, m = nfft // 2 + 1, b * nblk
     xr = torch.randn(bins, b, nblk, d, device=dev).to(torch.bfloat16)
     xi = torch.randn(bins, b, nblk, d, device=dev).to(torch.bfloat16)
@@ -1035,7 +1107,9 @@ def mel_kernel_checks(torch, M, dev, wavs, nvalid, valid, frames2, bank_mel, rec
     nblk = -(-(t_pad - length + 1) // hop)
     cmat, smat = fs._dft_mats(nfft_s, torch.bfloat16, dev)
     g = torch.cat([cmat, -smat], dim=1).contiguous()
-    xr, xi = k3.fft_block_dft(fm.binary.to(torch.bfloat16), g, nfft_s, hop, nblk)
+    # kernel 3 at D = 504 on the log-mel map: the last d tile is partial
+    # (504 = 3 x 128 + 120) and TMA clips its stores
+    xr, xi = M.record_dft(k3, fm.binary.to(torch.bfloat16), g, nfft_s, hop, nblk, DFT_MEL)
     xq_r, xq_i, sc8 = fs.quantize_block_spectra(xr, xi, fbank8.w2_scale)
     m = B * nblk
     M.record_int8(k4, fbank8, xq_r, xq_i, sc8, m, INT8_MEL)
@@ -1222,6 +1296,40 @@ def main() -> int:
         say(f"fft_binmm_int8 ({shape}): one launch between the events (with the wrapper's "
             f"host time) {time_ms(torch, run):.4f} ms; kernel {share:.3f} of its bound")
 
+    def record_dft(k3, x, g, nfft_, hop_, nblk_, shape):
+        """Kernel 3 on a scan's own map: within one bf16 step (2^-7) of
+        max|ref| of its plain version, two launches bitwise equal; timed
+        over loops of 100 launches beside one bf16 ``matmul`` of the
+        basis and the unfolded windows.  Returns the kernel's xr, xi."""
+        run = lambda: k3.fft_block_dft(x, g, nfft_, hop_, nblk_)     # noqa: E731
+        got = run()
+        ref = k3.fft_block_dft_plain(x, g, nfft_, hop_, nblk_)
+        err = max(float((a.float() - r.float()).abs().max()) for a, r in zip(got, ref))
+        top = max(float(r.float().abs().max()) for r in ref)
+        check(err <= 2.0 ** -7 * top, f"fft_block_dft ({shape}): {err} > 2^-7 * {top}")
+        check(all(bool(torch.equal(a, c)) for a, c in zip(got, run())),
+              f"fft_block_dft ({shape}): two launches differ")
+        del ref
+        b_, t_, d_ = x.shape
+        bins_, m_ = g.shape[1] // 2, b_ * nblk_
+        blocks = torch.nn.functional.pad(x, (0, 0, 0, nblk_ * hop_ + nfft_ - hop_ - t_))
+        blocks = blocks.unfold(1, nfft_, hop_).permute(3, 0, 1, 2).reshape(nfft_, m_ * d_)
+        blocks = blocks.contiguous()
+        g_t = g.t().contiguous()
+        record(
+            k3, err, "2^-7 * max|ref|", time_ms(torch, run, loop=100),
+            time_ms(torch, lambda: k3.fft_block_dft_plain(x, g, nfft_, hop_, nblk_)),
+            time_ms(torch, lambda: torch.matmul(g_t, blocks), loop=100),
+            b_ * t_ * d_ * 2 + g.numel() * 2 + 2 * bins_ * m_ * d_ * 2,
+            2 * (2 * bins_) * nfft_ * m_ * d_, BF16_FLOPS, shape=shape,
+        )
+        del blocks
+        share = rows[-1]["bound_ms"] / rows[-1]["ms"]
+        plan = k3.plan(b_, d_, nfft_, nblk_, bins_, k3._sm_count(str(x.device)))
+        say(f"fft_block_dft ({shape}): one launch between the events (with the wrapper's "
+            f"host time) {time_ms(torch, run):.4f} ms; kernel {share:.3f} of its bound; "
+            f"two launches bitwise equal; {plan}")
+        return got
 
     # kernel 1: response planes (tolerances: check_planes)
     planes = k1.edge_response_planes(frames2, fcfg.nfft)
@@ -1283,27 +1391,16 @@ def main() -> int:
 
     # kernel 3: block DFT; bf16 output -> one bf16 step (2^-7) of max|ref|
     bf16_tol = 2.0 ** -7
+    # the scorer's cast of the map (detect/fft_scorer.py: u8 -> bf16),
+    # which writes the bf16 map kernel 3 reads
     x = flat.reshape(B, t_pad, d).to(torch.bfloat16)
+    cast_ms = time_ms(torch, lambda: flat.reshape(B, t_pad, d).to(torch.bfloat16), loop=100)
+    cast_bound = (flat.numel() * flat.element_size() + x.numel() * 2) / HBM_BPS * 1e3
+    say(f"the map's {flat.dtype} -> bf16 cast at the scan's shape: {cast_ms:.4f} ms over loops "
+        f"of 100 (bound {cast_bound:.4f} ms, bytes)")
     cmat, smat = fs._dft_mats(nfft, torch.bfloat16, dev)
     g = torch.cat([cmat, -smat], dim=1).contiguous()
-    xr, xi = k3.fft_block_dft(x, g, nfft, hop, nblk)
-    xr_ref, xi_ref = k3.fft_block_dft_plain(x, g, nfft, hop, nblk)
-    err3 = max(float((xr.float() - xr_ref.float()).abs().max()),
-               float((xi.float() - xi_ref.float()).abs().max()))
-    ref3 = max(float(xr_ref.float().abs().max()), float(xi_ref.float().abs().max()))
-    check(err3 <= bf16_tol * ref3, f"fft_block_dft: {err3} > 2^-7 * {ref3}")
-    blocks = torch.nn.functional.pad(x, (0, 0, 0, nblk * hop + nfft - hop - t_pad))
-    blocks = blocks.unfold(1, nfft, hop).permute(3, 0, 1, 2).reshape(nfft, m * d).contiguous()
-    g_t = g.t().contiguous()
-    record(
-        k3, err3, "2^-7 * max|ref|",
-        time_ms(torch, lambda: k3.fft_block_dft(x, g, nfft, hop, nblk)),
-        time_ms(torch, lambda: k3.fft_block_dft_plain(x, g, nfft, hop, nblk)),
-        time_ms(torch, lambda: torch.matmul(g_t, blocks)),
-        B * t_pad * d * 2 + g.numel() * 2 + 2 * bins * m * d * 2,
-        2 * (2 * bins) * nfft * m * d, BF16_FLOPS,
-    )
-    del blocks
+    xr, xi = record_dft(k3, x, g, nfft, hop, nblk, DFT_BENCH)
 
     # kernel 4: bin matmul; bf16 output
     check((bins, m, d, K) == (80, 192, 2048, 1024), f"bin matmul shape {(bins, m, d, K)}")
@@ -1370,6 +1467,20 @@ def main() -> int:
     check(err_s <= 4e-3 * ref_s, f"scores: {err_s} > 4e-3 * {ref_s}")
     say(f"scores (bf16 kernels vs f32 plain): max err {err_s:.6g} = "
         f"{err_s / ref_s:.3g} of max|score| {ref_s:.6g} (tolerance 4e-3)")
+    # the scorer enqueues without waiting for the device: behind ~100 ms
+    # of queued device time, a call that copied from host memory (its
+    # DFT bases, before they were made once) would wait it out
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    t0 = time.perf_counter()
+    fs.fft_sliding_scores(flat.reshape(B, t_pad, d), fbank, time_major=True)
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    all_s = time.perf_counter() - t0
+    check(host_s < 0.5 * all_s, f"the scorer waited for the device: host {host_s:.4f} s of "
+                                f"{all_s:.4f} s")
+    say(f"the scorer's host time behind a queued device sleep: {host_s * 1e3:.3f} ms of the "
+        f"{all_s * 1e3:.3f} ms until the device finished (no wait on the device)")
     del planes, planes_ref, s_k, s_p
     torch.cuda.empty_cache()
 
@@ -1476,7 +1587,7 @@ def main() -> int:
     background_mel = rng.uniform(0.01, 0.99, (mf, 8)).astype(np.float32)
     bank_mel = bank_from_numpy(templates_mel, background_mel, [f"k{i}" for i in range(K)], dev)
     mods = SimpleNamespace(C=C, fp=fp, fs=fs, k1=k1, k3=k3, k4=k4, kp=kp, k8=k8, k9=k9,
-                           record_int8=record_int8)
+                           record_int8=record_int8, record_dft=record_dft)
     mel_kernel_checks(torch, mods, dev, wavs, nvalid, valid, frames2, bank_mel, record, say)
     torch.cuda.empty_cache()
 
@@ -1633,6 +1744,7 @@ def main() -> int:
         if not dkw:
             take_launches(rows, ("frontend_planes_mel", "radix_counts", "binspread"), counts)
             take_launches(rows, ("fft_binmm",), counts, shape=BINMM_MEL)
+            take_launches(rows, ("fft_block_dft",), counts, shape=DFT_MEL)
         else:
             take_launches(rows, ("fft_binmm_int8",), counts, shape=INT8_MEL)
         stages = " ".join(

@@ -29,6 +29,7 @@ on the CPU).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -107,6 +108,24 @@ def _idft_mats(nfft: int, nout: int, dtype, device=None):
         torch.from_numpy(np.cos(ang) * wgt / nfft).to(device=device, dtype=dtype),
         torch.from_numpy(np.sin(ang) * wgt / nfft).to(device=device, dtype=dtype),
     )
+
+
+@functools.lru_cache(maxsize=16)
+def _dft_basis(nfft: int, dtype, device) -> torch.Tensor:
+    """g = [cos | -sin] [nfft, 2 bins], the block DFT's basis, made once
+    per (nfft, dtype, device): a copy from host memory to the card blocks
+    the host until the device has run everything queued before it, so a
+    scan must not make it per batch.  Callers read it, never write it."""
+    cmat, smat = _dft_mats(nfft, dtype, device)
+    return torch.cat([cmat, -smat], dim=1).contiguous()
+
+
+@functools.lru_cache(maxsize=16)
+def _idft_basis(nfft: int, hop: int, dtype, device) -> torch.Tensor:
+    """imat = [icos ; -isin] [2 bins, hop], the iDFT's basis, made once
+    per (nfft, hop, dtype, device) for the same reason."""
+    icmat, ismat = _idft_mats(nfft, hop, dtype, device)
+    return torch.cat([icmat, -ismat], dim=0).contiguous()
 
 
 def _bank_spectra(w: torch.Tensor, nfft: int, mm_dtype) -> torch.Tensor:
@@ -216,8 +235,7 @@ def fft_sliding_scores(
     binmm_int8_fn = fft_binmm_int8_plain if plain else fft_binmm_int8
     idft_fn = fft_idft_plain if plain else fft_idft
 
-    cmat, smat = _dft_mats(nfft, mm, dev)
-    g = torch.cat([cmat, -smat], dim=1).contiguous()          # [nfft, 2*bins]
+    g = _dft_basis(nfft, mm, dev)                              # [nfft, 2*bins]
     xr, xi = dft_fn(x, g, nfft, hop, nblk)                     # [bins, B, nblk, D]
     if quant:
         xq_r, xq_i, sc = quantize_block_spectra(xr, xi, bank.w2_scale)
@@ -225,8 +243,7 @@ def fft_sliding_scores(
                              w2_kmajor=bank.w2_kmajor)
     else:
         ycat = binmm_fn(xr, xi, bank.w2)                       # [2, bins, m, K]
-    icmat, ismat = _idft_mats(nfft, hop, mm, dev)
-    imat = torch.cat([icmat, -ismat], dim=0).contiguous()     # [2*bins, hop]
+    imat = _idft_basis(nfft, hop, mm, dev)                     # [2*bins, hop]
     scores_t = idft_fn(ycat.reshape(2 * bins, m * k), imat, bank.c, nblk)
     if time_major:
         return scores_t if not trim else scores_t[:, :tout]

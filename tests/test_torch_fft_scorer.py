@@ -215,3 +215,23 @@ def test_bf16_bank_carries_across_bitwise():
     np.testing.assert_array_equal(
         bank.w2.to(torch.float32).numpy(), np.asarray(w2, np.float32)
     )
+
+
+def test_fft_sliding_scores_copies_no_basis_from_the_host_per_call(problem, monkeypatch):
+    """A scan calls the scorer every batch.  Its DFT and iDFT bases are
+    made in host memory, and on the card such a copy blocks the host
+    until the device has drained its queue; so a repeated call makes no
+    host array (no ``torch.from_numpy``) and passes the same basis
+    tensors."""
+    feats, w, c = problem
+    bank = tfs.build_fft_bank(torch.from_numpy(w), torch.from_numpy(c))
+    x = torch.from_numpy(feats > 0)
+    want = tfs.fft_sliding_scores(x, bank)
+    made = []
+    real = torch.from_numpy
+    monkeypatch.setattr(torch, "from_numpy", lambda a: made.append(a.shape) or real(a))
+    got = tfs.fft_sliding_scores(x, bank)
+    assert made == []
+    assert tfs._dft_basis(bank.nfft, torch.float32, x.device) is tfs._dft_basis(
+        bank.nfft, torch.float32, x.device)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())

@@ -1,11 +1,15 @@
 """Times kernel 1 (log-magnitude and mel mode), kernel 2 (select +
-binarize + spread), kernel 5 (the iDFT), kernel 6 (the int8 bin matmul)
-and kernel 10 (the direct correlation) of the port in one or more
+binarize + spread), kernel 3 (the block DFT), kernel 5 (the iDFT),
+kernel 6 (the int8 bin matmul) and kernel 10 (the direct correlation)
+of the port in one or more
 checkouts, at the streaming scan's bench shape, by one method:
 ``chip_smoke.time_ms`` over loops of 100 launches (device time; kernel
 10, milliseconds a launch, over loops of 10) and over one launch (the
 wrapper's host time included).  Kernel 2 takes random normal planes [4,
 8, 3072, 256] with 2998 valid frames (30 s), q 0.98, rf = rt = 1.
+Kernel 3 takes random binary bf16 maps [8, 3072, D] at 0.15 density
+and the scorer's DFT basis at nfft 159 (hop 128, 24 windows), at D =
+2048 and at the log-mel D = 504.
 Kernel 6 takes uniform int8 spectra at the scan's shape (bins 80, m 192,
 K 1024) at D = 2048 and at the log-mel D = 504: a checkout whose int8
 bin matmul reads the bank's K-major copy gets it and rows padded to 16
@@ -36,7 +40,7 @@ N_ROWS, FL, NFFT, SR, N_MELS = 8 * 3072, 400, 512, 16000, 64   # B 8 x T_pad 307
 TWO_BINS, HOP, NBLK, B, K = 160, 128, 24, 8, 1024              # nfft 159, L 32
 T_PAD, F, VALID, QUANTILE = 3072, 256, 2998, 0.98              # kernel 2
 T_CORR, L_CORR, D_CORR, DENSITY = 3000, 32, 2048, 0.2         # kernel 10
-BINS = 80                                                      # kernel 6: m = B x NBLK
+BINS, NFFT_S = 80, 159                                         # kernels 3, 6: m = B x NBLK
 
 
 def one(root: str) -> dict:
@@ -45,9 +49,11 @@ def one(root: str) -> dict:
     sys.path.insert(0, root)
     import torch
 
+    from template_speech_recognition_tpu_torch.detect.fft_scorer import _dft_mats
     from template_speech_recognition_tpu_torch.frontend.planes import _dual_ranks
     from template_speech_recognition_tpu_torch.ops import correlation_kernel as k10
     from template_speech_recognition_tpu_torch.ops import fft_binmm_kernel as k6
+    from template_speech_recognition_tpu_torch.ops import fft_dft_kernel as k3
     from template_speech_recognition_tpu_torch.ops import fft_idft_kernel as k5
     from template_speech_recognition_tpu_torch.ops import frontend_kernel as k1
     from template_speech_recognition_tpu_torch.ops import selbin_kernel as k2
@@ -88,6 +94,12 @@ def one(root: str) -> dict:
             xr, xi = buf[0, ..., :d].contiguous(), buf[1, ..., :d].contiguous()
             fn = lambda xr=xr, xi=xi, w2=w2, sc=sc: k6.fft_binmm_int8(xr, xi, w2, sc)  # noqa: E731
         calls["fft_binmm_int8" if d == 2048 else "fft_binmm_int8_d504"] = fn
+    cm, sm = _dft_mats(NFFT_S, torch.bfloat16, dev)
+    g_dft = torch.cat([cm, -sm], dim=1).contiguous()
+    for d in (2048, 504):
+        x = (torch.rand(B, T_PAD, d, device=dev, generator=g) < 0.15).to(torch.bfloat16)
+        calls["fft_block_dft" if d == 2048 else "fft_block_dft_d504"] = (
+            lambda x=x: k3.fft_block_dft(x, g_dft, NFFT_S, HOP, NBLK))
     out = {"root": root}
     for name, fn in calls.items():
         out[name] = {"loop100_ms": time_ms(torch, fn, loop=100), "one_launch_ms": time_ms(torch, fn)}
