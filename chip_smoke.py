@@ -19,10 +19,12 @@
    TB/s and operations / the peak rate of their type).  The log-mel
    scan's kernels (n_mels 64: F = 63, D = 504) follow: kernel 1 in mel
    mode (also at n_mels 129, where the two-kernel path takes it), the
-   radix counting pass at every level's real candidates (timed over 100
-   launches queued behind a device sleep, so the events time the device,
-   not the enqueue; the yardstick is ``torch.kthvalue`` for both ranks,
-   which stands for the whole 11-launch select), binarize + spread, the
+   radix select (kernel 8: the whole dual-rank select in one call of at
+   most four kernels and one memset, counted from a ``torch.profiler``
+   trace; bitwise, two launches equal, timed over 100 calls queued behind
+   a device sleep, so the events time the device, not the enqueue; the
+   yardstick is ``torch.kthvalue`` for both ranks; the whole
+   ``plane_order_statistics`` timed as one call, ``sel_ms``), binarize + spread, the
    layered path against the two-kernel path at the default shape
    (bitwise), and the block DFT, pair LLR and the int8 and bf16 bin
    matmuls at D = 504 (on the log-mel scan's own map, spectra and banks,
@@ -46,8 +48,11 @@
    It also runs every kernel once at small ragged shapes (partial
    tiles, odd nfft, an utterance with no valid row, ties and -0.0,
    DTW at L = 32, 48, 96, 128 and 200 with ragged segment lengths and band
-   1, LLR windows past the map's end, F = 39 and 63, unaligned radix
-   rows, correlation at K = 1, 3 and 129, D = 40, 504 and 2048, T''
+   1, LLR windows past the map's end, F = 39 and 63, the radix select
+   bitwise at 12 shapes (F 39, 63, 64, 511 and 512, valid 0, 1, T - 1
+   and T, ties, one-value planes, an unaligned base) x 4 quantiles x 3
+   schedules and at ``FrontendConfig(nfft=1024)``'s planes of all 8
+   utterances (F 512, 201 MB), correlation at K = 1, 3 and 129, D = 40, 504 and 2048, T''
    not a multiple of its 192-start tile, L = 1, 9, 17, 32, 48 and T
    (two launches bitwise equal), the
    TMA + wgmma bin matmul at m = 1, 63, 64, 65, 96 x D = 8, 40, 504 x
@@ -115,12 +120,12 @@
    rescoring (verify-the-winner, f32 filters), whose DTW scores are held
    against the CPU's rescore of the same peaks within 1e-5 x max|score|.
 
-The default, the DTW + int8 and the log-mel scan are each run once
+The default, the DTW + int8 and the two log-mel scans are each run once
 more under ``torch.profiler``: the union of the device intervals in
 the scan loop, set against the untraced loop's wall time, is the
-device's busy share; the block DFT's device time a batch and share,
-and the copy kernels' (the map's cast to bf16 among them), are printed
-by name.
+device's busy share; the device operations a batch, the block DFT's
+device time a batch and share, and the copy kernels' (the map's cast
+to bf16 among them), are printed by name.
 
 Any failed check exits non-zero without printing the result line.  The
 last three lines are the kernels JSON, the card's name and power
@@ -149,11 +154,11 @@ BF16_FLOPS = 989e12        # bf16 tensor cores, dense
 TF32_FLOPS = 495e12        # TF32 tensor cores, dense
 INT8_OPS = 1979e12         # int8 tensor cores, dense
 STEMS = ("frontend_planes", "select_binspread", "fft_block_dft", "fft_binmm", "fft_idft",
-         "banded_dtw", "pair_llr", "fft_binmm_int8", "radix_counts", "binspread", "correlation")
+         "banded_dtw", "pair_llr", "fft_binmm_int8", "radix_select", "binspread", "correlation")
 # kernels each scan must launch (launch-count names)
 SCAN_KERNELS = ("frontend_planes", "select_binspread", "fft_block_dft", "fft_binmm",
                 "fft_idft")
-MEL_KERNELS = ("frontend_planes_mel", "radix_counts", "binspread", "fft_block_dft",
+MEL_KERNELS = ("frontend_planes_mel", "radix_select", "binspread", "fft_block_dft",
                "fft_binmm", "fft_idft")
 # the two shapes at which the kernels line reports fft_block_dft
 DFT_BENCH = "bench: B 8, T 3072, D 2048, nfft 159"
@@ -237,12 +242,9 @@ def time_once(torch, fn):
     return out, a.elapsed_time(b)
 
 
-def device_ms_traced(torch, fn):
-    """Device time of ``fn`` from a ``torch.profiler`` trace: the union of
-    its device intervals (kernels, copies, memsets) in ms, and the device
-    ms by name; (None, {}) if the trace holds no device event.  Unlike
-    events around a stage, the union leaves out the gaps in which the
-    device waits for the host to enqueue."""
+def device_events(torch, fn):
+    """The device events (kernels, copies, memsets) of one traced call of
+    ``fn`` (``torch.profiler``), in order of start."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -250,9 +252,26 @@ def device_ms_traced(torch, fn):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+
+
+def device_op_names(torch, fn):
+    """The names of the device operations one call of ``fn`` enqueues, in
+    order; None if the trace holds no device event."""
+    return [e.name for e in device_events(torch, fn)] or None
+
+
+def device_ms_traced(torch, fn):
+    """Device time of ``fn`` from a ``torch.profiler`` trace: the union of
+    its device intervals (kernels, copies, memsets) in ms, the device ms
+    by name and the number of device operations; (None, {}, 0) if the
+    trace holds no device event.  Unlike events around a stage, the union
+    leaves out the gaps in which the device waits for the host to
+    enqueue."""
+    dev_events = device_events(torch, fn)
     if not dev_events:
-        return None, {}
+        return None, {}, 0
     busy, end = 0.0, -float("inf")
     for s, e in sorted((e.time_range.start, e.time_range.end) for e in dev_events):
         if e > end:
@@ -261,15 +280,15 @@ def device_ms_traced(torch, fn):
     by_name = {}
     for e in dev_events:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
-    return busy / 1e3, by_name
+    return busy / 1e3, by_name, len(dev_events)
 
 
 def report_busy(torch, say, label, run, build, ctr):
     """The scan loop's device time (a traced run of the whole scan less a
     traced bank build) against the loop wall of the untraced run, and the
     five names with the most device time in the loop."""
-    total, names = device_ms_traced(torch, run)
-    built, built_names = device_ms_traced(torch, build)
+    total, names, n_ops = device_ms_traced(torch, run)
+    built, built_names, n_built = device_ms_traced(torch, build)
     if total is None or built is None:
         say(f"{label}: device busy share not measured (the trace holds no device event)")
         return
@@ -283,7 +302,8 @@ def report_busy(torch, say, label, run, build, ctr):
     cast = sum(ms for n, ms in names.items() if "direct_copy" in n)
     say(f"{label}: device time in the scan loop {scan_ms:.3f} ms ({scan_ms / nb:.3f} "
         f"ms a batch; torch.profiler, the bank build's {built:.3f} ms left out) = "
-        f"{scan_ms / loop_ms:.3f} of the untraced loop's {loop_ms:.3f} ms; most device time: "
+        f"{scan_ms / loop_ms:.3f} of the untraced loop's {loop_ms:.3f} ms; "
+        f"{(n_ops - n_built) / nb:.1f} device ops a batch; most device time: "
         + ", ".join(f"{n[:48]} {ms:.3f} ms" for n, ms in top)
         + f"; the block DFT kernel (fft_block_dft) {dft / nb:.4f} ms a batch, "
           f"{dft / scan_ms:.3f} of the device time; copy kernels (direct_copy: dtype casts, "
@@ -677,6 +697,67 @@ def dft_checks(torch, dev, k3, fs, say):
         f"nfft 1023, D 500 and a misaligned base raise")
 
 
+# (B, P, T, F, valid, kind) of the radix select's small checks: F 39,
+# 63, 64 and 511; valid 0, 1, T - 1, T and mixes; an unaligned base;
+# ties, signed zeros, planes of one value
+RADIX_SMALL = (
+    (1, 4, 40, 39, [40], "random"), (3, 4, 33, 63, [32, 1, 0], "random"),
+    (8, 4, 17, 64, [17, 16, 1, 0, 9, 3, 12, 5], "random"), (3, 2, 9, 511, [9, 8, 0], "random"),
+    (1, 3, 50, 63, [49], "random"), (8, 2, 12, 39, [0, 1, 0, 1, 11, 12, 2, 0], "random"),
+    (3, 4, 21, 511, [1, 20, 21], "random"), (1, 1, 130, 64, [129], "random"),
+    (3, 4, 250, 63, [250, 83, 0], "ties"), (3, 4, 77, 63, [77, 1, 40], "equal"),
+    (2, 4, 1000, 512, [999, 3], "random"), (3, 4, 33, 63, [32, 1, 0], "unaligned"),
+)
+
+
+def radix_checks(torch, dev, k8, fp, rng, say):
+    """Kernel 8 (``radix_select``) bitwise against its plain version at
+    ``RADIX_SMALL`` x quantiles 0, 0.3, 0.9 and 0.98; a base one float
+    past 16-byte alignment is taken, shapes it cannot take raise."""
+    n = 0
+    for b, p, t, f, valid, kind in RADIX_SMALL:
+        if kind == "ties":
+            vals = np.array([-2.0, -1.0, -0.0, 0.0, 0.5, 1.0, 3.0], np.float32)
+            x = vals[rng.integers(0, len(vals), (p, b, t, f))]
+        elif kind == "equal":
+            x = np.empty((p, b, t, f), np.float32)
+            for i in range(p):
+                x[i] = (0.5, -0.0, 0.0, -3.25)[i % 4]
+        else:
+            x = rng.standard_normal((p, b, t, f)).astype(np.float32)
+            x[:, :, : t // 3] = np.round(x[:, :, : t // 3] * 4) / 4
+            x[:, :, min(5, t - 1), :7] = -0.0
+        if kind == "unaligned":
+            pm = torch.zeros(x.size + 1, device=dev)[1:].view(x.shape)
+            pm.copy_(torch.from_numpy(x))
+            check(pm.data_ptr() % 16 == 4, "the misaligned planes are not misaligned")
+        else:
+            pm = torch.from_numpy(x).to(dev)
+        vt = torch.tensor(valid, dtype=torch.int32, device=dev)
+        for q in (0.0, 0.3, 0.9, 0.98):
+            need = fp._dual_ranks(vt, f, q)
+            want = k8.radix_select_plain(pm, vt, need)
+            got = k8.radix_select(pm, vt, need)
+            check(all(tuple(g.shape) == (b, p) and g.is_contiguous() for g in got)
+                  and all(bool(torch.equal(g.view(torch.int32), w.view(torch.int32)))
+                          for g, w in zip(got, want)),
+                  f"radix_select (B {b}, P {p}, T {t}, F {f}, valid {valid}, {kind}, "
+                  f"q {q}): not bitwise")
+            n += 1
+    for why, args in (
+            ("F 0", (torch.zeros(4, 2, 8, 0, device=dev),)),
+            ("non-contiguous", (torch.zeros(2, 4, 8, 63, device=dev).transpose(0, 1),)),
+            ("float64", (torch.zeros(4, 2, 8, 63, device=dev, dtype=torch.float64),))):
+        try:
+            k8.radix_select(*args, torch.full((2,), 8, dtype=torch.int32, device=dev),
+                            torch.ones(2, 2, dtype=torch.int32, device=dev))
+            check(False, f"radix_select took planes it cannot take ({why})")
+        except ValueError:
+            pass
+    say(f"radix_select: bitwise at {len(RADIX_SMALL)} small shapes x 4 quantiles ({n} "
+        f"calls); F 0, non-contiguous and float64 planes raise")
+
+
 def small_shape_checks(torch, dev, audio, k1, k2, k3, k4, k5, kp, kd, k8, k9, kc, fp, fs,
                        say):
     """Each kernel once at small ragged shapes (the CPU tests' sizes:
@@ -684,7 +765,6 @@ def small_shape_checks(torch, dev, audio, k1, k2, k3, k4, k5, kp, kd, k8, k9, kc
     the log-mel widths F = 39 and 63, D = 504), against its plain
     version on the same inputs."""
     from template_speech_recognition_tpu_torch.ops import _cuda
-    from template_speech_recognition_tpu_torch.ops.edges import order_keys32
 
     rng = np.random.default_rng(SEED + 1)
     frames = torch.from_numpy(
@@ -818,16 +898,7 @@ def small_shape_checks(torch, dev, audio, k1, k2, k3, k4, k5, kp, kd, k8, k9, kc
     except ValueError:
         pass
 
-    # radix counting pass: ragged rows (N % 4 != 0: unaligned, key by
-    # key), NC 3, 8, 16, masked keys, candidates in the digit's range
-    for n, nc, shift in ((2500, 16, 29), (2501, 3, 0), (9000, 8, 24), (7, 16, 5)):
-        keys = order_keys32(torch.randn(5, n, device=dev))
-        keys[:, ::7] = -1
-        cand = rng.integers(0, 1 << (32 - shift), (5, nc), dtype=np.uint64)
-        cand = torch.from_numpy(cand.astype(np.uint32).view(np.int32)).to(dev)
-        check(bool(torch.equal(k8.radix_level_counts(keys, cand, shift),
-                               k8.radix_level_counts_plain(keys, cand, shift))),
-              f"radix_counts (small, N={n}, NC={nc}, shift={shift}): not bitwise")
+    radix_checks(torch, dev, k8, fp, rng, say)
 
     # order statistics and binarize + spread at F = 39 and 63, T not a
     # multiple of the 32-row tile, an utterance with no valid row, a
@@ -913,7 +984,7 @@ def take_launches(rows, names, counts, shape=None):
             row["launches"] = int(counts.get(row["name"], 0))
 
 
-def wide_frontend_check(torch, C, fp, _cuda, wavs, nvalid, say):
+def wide_frontend_check(torch, C, fp, k8, _cuda, wavs, nvalid, say):
     """``FrontendConfig(nfft=1024)`` (512 DFT columns, past the 480 at
     which the port's earlier fp32 SIMT kernel 1 no longer launched)
     through both frontend paths on the first two utterances: the two
@@ -930,7 +1001,7 @@ def wide_frontend_check(torch, C, fp, _cuda, wavs, nvalid, say):
     layered = fp.frontend_batch_flat(w2, n2, wcfg, layered=True).binary
     counts = _cuda.launch_counts()
     check(counts.get("frontend_planes", 0) == 2 and counts.get("select_binspread", 0) == 1
-          and counts.get("radix_counts", 0) > 0 and counts.get("binspread", 0) == 1,
+          and counts.get("radix_select", 0) == 1 and counts.get("binspread", 0) == 1,
           f"nfft 1024 frontends: launches {counts}")
     check(bool(torch.equal(fused, layered)), "nfft 1024: the layered and two-kernel maps differ")
     share = int((fused != plain).sum()) / plain.numel()
@@ -938,6 +1009,19 @@ def wide_frontend_check(torch, C, fp, _cuda, wavs, nvalid, say):
     say(f"FrontendConfig(nfft=1024), 2 utterances, both frontend paths: one map bit for bit "
         f"({int(fused.sum())} set cells of {fused.numel()}), {share:.3g} of its cells unlike "
         f"the plain run's (tolerance 1e-3); launches {counts}")
+    # the radix select at the layered path's shape for all 8 utterances
+    # (F 512: 201 MB of planes), bitwise against its plain version
+    planes = fp.response_planes(fp._windowed_frames(wavs, wcfg), wcfg)
+    pm = planes.transpose(0, 1)
+    valid = torch.div(nvalid - wcfg.frame_length, wcfg.hop_length, rounding_mode="floor").to(
+        torch.int32)
+    need = fp._dual_ranks(valid, pm.shape[3], wcfg.edge_quantile)
+    got = k8.radix_select(pm, valid, need)
+    want = k8.radix_select_plain(pm, valid, need)
+    check(all(bool(torch.equal(g.view(torch.int32), w.view(torch.int32)))
+              for g, w in zip(got, want)), "radix_select (nfft 1024, F 512): not bitwise")
+    say(f"radix_select at nfft 1024 (planes {tuple(pm.shape)}, {pm.numel() * 4 / 1e6:.1f} MB): "
+        f"bitwise")
 
 
 def mel_kernel_checks(torch, M, dev, wavs, nvalid, valid, frames2, bank_mel, record, say):
@@ -946,9 +1030,9 @@ def mel_kernel_checks(torch, M, dev, wavs, nvalid, valid, frames2, bank_mel, rec
     C, fp, fs, k1, k3, k4, kp, k8, k9 = (M.C, M.fp, M.fs, M.k1, M.k3, M.k4, M.kp, M.k8,
                                           M.k9)
     from template_speech_recognition_tpu_torch.ops.dft import dft_matrices, mel_filterbank
-    from template_speech_recognition_tpu_torch.ops.edges import key_to_float, order_keys32
+    from template_speech_recognition_tpu_torch.ops import _cuda
+    from template_speech_recognition_tpu_torch.ops.edges import order_keys
     from template_speech_recognition_tpu_torch.ops.layout import filters_to_flat
-    from template_speech_recognition_tpu_torch.ops.radix_kernel import as_uint32, to_bits32
 
     mcfg = C.FrontendConfig(use_mel=True)
     nfft, sr, nm, f = mcfg.nfft, mcfg.sample_rate, mcfg.n_mels, mcfg.feature_freqs
@@ -999,59 +1083,66 @@ def mel_kernel_checks(torch, M, dev, wavs, nvalid, valid, frames2, bank_mel, rec
         f"{bt1:.4f} ms, {byt1})")
     del _p129
 
-    # kernel 8 at every level's real candidates: the layered select of
-    # plane_order_statistics, one launch per level, each bitwise
+    # kernel 8, the whole layered select, on kernel 1's plane-major
+    # output: bitwise against its plain version and through
+    # plane_order_statistics, two launches bitwise equal; one wrapper call
+    # of at most four kernels and one memset (torch.profiler)
     planes = pm.reshape(4, B, t_pad, f).transpose(0, 1)            # [B, 4, T, F] view
+    pm4 = planes.transpose(0, 1)                                    # the [4, B, T, F] storage
     q = mcfg.edge_quantile
+    need = fp._dual_ranks(valid, f, q)
+    sel = k8.radix_select(pm4, valid, need)
+    want = k8.radix_select_plain(pm4, valid, need)
+    again = k8.radix_select(pm4, valid, need)
+    via = fp.plane_order_statistics(planes, valid, q)
+    via_copy = fp.plane_order_statistics(planes.contiguous(), valid, q)  # [B, P] storage
+
+    def same(x, y):
+        return all(bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+                   for a, b in zip(x, y))
+
+    check(same(sel, want), "radix_select: not bitwise at the log-mel scan's planes")
+    check(same(again, sel), "radix_select: two launches differ")
+    check(same(via, sel), "plane_order_statistics does not return the kernel's select")
+    check(same(via_copy, sel), "plane_order_statistics differs on utterance-major planes")
+    del via_copy
+    os_hi, os_lo = sel
+    _cuda.reset_launches()
+    ops = device_op_names(torch, lambda: k8.radix_select(pm4, valid, need))
+    whole = device_op_names(torch, lambda: fp.plane_order_statistics(planes, valid, q))
+    calls = _cuda.launch_counts().get(k8.NAME, 0)
+    check(calls == 2, f"radix_select: {calls} wrapper calls for two selects")
+    if ops is None:
+        say("radix_select: device ops a call not measured (the trace holds no device event)")
+    else:
+        memsets = [n for n in ops if "emset" in n]
+        check(len(ops) - len(memsets) <= 4 and len(memsets) <= 1,
+              f"radix_select enqueues {ops}")
+        say(f"radix_select: one call enqueues {len(ops) - len(memsets)} kernels and "
+            f"{len(memsets)} memset; the whole plane_order_statistics (the ranks' elementwise "
+            f"ops and the call) {len(whole)} device ops")
+    # the yardstick: torch.kthvalue of both ranks over the keys of every
+    # cell (masked cells 0xFFFFFFFF, above every real key)
     rv = torch.arange(t_pad, device=dev)[None, :] < valid[:, None]
-    keys = order_keys32(planes.transpose(0, 1)).masked_fill(~rv[None, :, :, None], -1)
-    keys = keys.reshape(4 * B, t_pad * f)
-    need = fp._dual_ranks(valid, f, q).to(torch.int64)[None, :, :, None]
-    prefix = torch.zeros((4, B, 2), dtype=torch.int64, device=dev)
-    bits_done, levels = 0, []
-    for w in fp.RADIX_WIDTHS:
-        bits_done += w
-        base = prefix << w
-        cand = to_bits32((base[..., None] + torch.arange(1 << w, device=dev)).reshape(4 * B, -1))
-        shift = 32 - bits_done
-        cnt = k8.radix_level_counts(keys, cand, shift)
-        check(bool(torch.equal(cnt, k8.radix_level_counts_plain(keys, cand, shift))),
-              f"radix_counts (level shift {shift}): not bitwise")
-        levels.append((cand, shift))
-        # the reference's digit pick: the first candidate reaching the rank
-        ok = (cnt.reshape(4, B, 2, 1 << w) >= need).to(torch.int32)
-        prefix = base + torch.argmax(ok, dim=-1)
-    os_hi, os_lo = fp.plane_order_statistics(planes, valid, q)
-    hi_r, lo_r = fp.plane_order_statistics(planes, valid, q, plain=True)
-    sel = key_to_float(prefix).transpose(0, 1)                      # [B, 4, 2]
-    check(bool(torch.equal(os_hi.view(torch.int32), sel[..., 0].view(torch.int32)))
-          and bool(torch.equal(os_lo.view(torch.int32), sel[..., 1].view(torch.int32))),
-          "plane_order_statistics does not select what its launches count")
-    check(bool(torch.equal(os_hi.view(torch.int32), hi_r.view(torch.int32)))
-          and bool(torch.equal(os_lo.view(torch.int32), lo_r.view(torch.int32))),
-          "plane_order_statistics: kernel and plain selects differ")
-    # timed at the second level's real candidates (NC = 16, as every
-    # level after the first)
-    cand2, shift2 = levels[1]
-    keys64 = as_uint32(keys)
+    keys64 = order_keys(pm4).masked_fill(~rv[None, :, :, None], 0xFFFFFFFF).reshape(4 * B, -1)
     check(bool((valid == valid[0]).all()), "the timed batch has one valid length")
-    ka, kb = int(need[0, 0, 0, 0]), int(need[0, 0, 1, 0])
+    ka, kb = int(need[0, 0]), int(need[0, 1])
     record(
         k8, 0.0, "bitwise",
-        time_ms(torch, lambda: k8.radix_level_counts(keys, cand2, shift2), loop=100),
-        time_ms(torch, lambda: k8.radix_level_counts_plain(keys, cand2, shift2)),
-        # the yardstick stands for the whole 11-launch select (both ranks)
+        time_ms(torch, lambda: k8.radix_select(pm4, valid, need), loop=100),
+        time_ms(torch, lambda: k8.radix_select_plain(pm4, valid, need)),
         time_ms(torch, lambda: (torch.kthvalue(keys64, ka, dim=1),
                                 torch.kthvalue(keys64, kb, dim=1))),
-        keys.numel() * 4 + cand2.numel() * 8,
-        keys.numel() * cand2.shape[1], FP32_FLOPS,      # one 32-bit compare a key a candidate
+        # the valid cells read once, the ranks and valid frames, both outputs
+        4 * int(valid.sum()) * f * 4 + need.numel() * 4 + B * 4 + 2 * os_hi.numel() * 4,
+        0, 1.0,
     )
     sel_ms = time_ms(torch, lambda: fp.plane_order_statistics(planes, valid, q))
-    say(f"radix_counts: {keys.shape[0]} rows x {keys.shape[1]} keys, {len(fp.RADIX_WIDTHS)} "
-        f"launches a select, every level bitwise; the whole layered select "
-        f"(plane_order_statistics: keys, 11 launches, digit picks) {sel_ms:.4f} ms; host "
-        f"{host_us(torch, lambda: k8.radix_level_counts(keys, cand2, shift2)):.1f} us a launch")
-    del keys, keys64
+    say(f"radix_select: {4 * B} rows of {int(valid[0])} x {f} valid cells, bitwise, two "
+        f"launches equal; the whole layered select (plane_order_statistics: the ranks and one "
+        f"radix_select call, one call between the events) sel_ms {sel_ms:.4f} ms; host "
+        f"{host_us(torch, lambda: k8.radix_select(pm4, valid, need)):.1f} us a call")
+    del keys64, pm4
 
     # kernel 9 on the kernel-1 planes (a strided [B, P] view) with the
     # selected statistics; bitwise
@@ -1594,7 +1685,7 @@ def main() -> int:
     small_shape_checks(torch, dev, frames2, k1, k2, k3, k4, k5, kp, kd, k8, k9, kc, fp, fs,
                        say)
     say("small ragged shapes: all eleven kernels agree with their plain versions")
-    wide_frontend_check(torch, C, fp, _cuda, wavs, nvalid, say)
+    wide_frontend_check(torch, C, fp, k8, _cuda, wavs, nvalid, say)
 
     # the map cells the kernels set otherwise than the plain run over the
     # corpus, in both frontend modes (the scans' score classes exempt the
@@ -1739,10 +1830,11 @@ def main() -> int:
             check(counts.get(name, 0) > 0, f"{name} was not launched by the {label}")
         for name in ("frontend_planes", "select_binspread"):
             check(counts.get(name, 0) == 0, f"the {label} launched {name}")
-        check(counts.get("radix_counts", 0) == len(fp.RADIX_WIDTHS) * ctr["batches"],
-              f"{label}: {counts.get('radix_counts', 0)} radix launches")
+        check(counts.get("radix_select", 0) == ctr["batches"],
+              f"{label}: {counts.get('radix_select', 0)} radix_select calls for "
+              f"{ctr['batches']} batches")
         if not dkw:
-            take_launches(rows, ("frontend_planes_mel", "radix_counts", "binspread"), counts)
+            take_launches(rows, ("frontend_planes_mel", "radix_select", "binspread"), counts)
             take_launches(rows, ("fft_binmm",), counts, shape=BINMM_MEL)
             take_launches(rows, ("fft_block_dft",), counts, shape=DFT_MEL)
         else:
@@ -1756,10 +1848,9 @@ def main() -> int:
             f"{ctr['time_scan_s']:.4f} s; with the bank build {wall:.4f} s); mean device "
             f"time per batch ({ctr['batches']:.0f} batches): {stages} (CUDA events); "
             f"launches {counts}")
-        if not dkw:
-            report_busy(torch, say, label,
-                        lambda: detect_corpus_stream(corpus, bank_mel, mcfg, target_phone="aa"),
-                        bank_build(bank_mel), ctr)
+        report_busy(torch, say, label,
+                    lambda: detect_corpus_stream(corpus, bank_mel, mcfg, target_phone="aa"),
+                    bank_build(bank_mel, int8_dtw=bool(dkw)), ctr)
         ref = detect_corpus_stream(corpus, bank_mel, mcfg, target_phone="aa", plain=True)
         # the sliding score at t reads frames [t, t + L); the DTW rescore
         # [t, t + L + band)

@@ -9,9 +9,9 @@ paths compute one map, bit for bit:
   and the select + binarize + spread (``ops.selbin_kernel``), so the
   planes cross device memory once between them;
 * the layered path: the same planes kernel, then the order statistics
-  by an 11-level radix select whose counting passes are a kernel
-  (``ops.radix_kernel``; the digits are picked on the device, with no
-  host sync between levels), then binarize + frequency spread
+  by a radix select that is one kernel call (``ops.radix_kernel``:
+  three histogram levels read the float planes, the digits are picked
+  on the device, no host sync), then binarize + frequency spread
   (``ops.binspread_kernel``), time dilation and the row mask.
 
 ``frontend_batch_flat`` takes the two-kernel path wherever both of its
@@ -41,25 +41,15 @@ from template_speech_recognition_tpu_torch.ops.binspread_kernel import (
     binarize_freqspread,
     binarize_freqspread_plain,
 )
-from template_speech_recognition_tpu_torch.ops.edges import (
-    _dilate_axis,
-    key_to_float,
-    order_keys32,
-)
+from template_speech_recognition_tpu_torch.ops.edges import _dilate_axis
 from template_speech_recognition_tpu_torch.ops.radix_kernel import (
-    radix_level_counts,
-    radix_level_counts_plain,
-    to_bits32,
+    radix_select,
+    radix_select_plain,
 )
 from template_speech_recognition_tpu_torch.ops.selbin_kernel import (
     select_binspread,
     select_binspread_plain,
 )
-
-# The reference's kernel schedule of digit widths (its XLA path takes
-# 8 x 4 bits); any schedule selects the same element, and keeping this
-# one lets each level's counts be compared launch by launch.
-RADIX_WIDTHS = (2,) + (3,) * 10
 
 
 class FlatFeatureMap(NamedTuple):
@@ -126,35 +116,20 @@ def plane_order_statistics(
     k = min(n-1, floor(f32(q) * f32(n))) and n-1-k: (os_k, os_{n-1-k}),
     each [B, P] float32, bitwise those of the reference.
 
-    Dual-rank radix bisection over the monotone uint32 keys (masked
-    cells 0xFFFFFFFF) with the digit widths ``RADIX_WIDTHS``: each level
-    counts, per (plane, rank), the keys whose top bits are <= each
-    candidate extension of the prefix (``ops.radix_kernel``, or its
-    plain version with ``plain``) and descends into the first candidate
-    whose count reaches rank + 1.  Every step stays on the device."""
-    b, p, t, f = planes.shape
-    dev = planes.device
-    # rows (p, b): the layered path hands over a [B, P] view of the
-    # plane-major kernel-1 output, for which this is the storage order
-    keys = order_keys32(planes.transpose(0, 1))                 # [P, B, T, F]
-    rv = torch.arange(t, device=dev)[None, :] < valid_frames.to(dev)[:, None]
-    keys = keys.masked_fill(~rv[None, :, :, None], -1).reshape(p * b, t * f)
-    need = _dual_ranks(valid_frames.to(dev), f, quantile).to(torch.int64)
-    need = need[None, :, :, None]                                # [1, B, 2, 1]
-    count = radix_level_counts_plain if plain else radix_level_counts
-    iota = {w: torch.arange(1 << w, device=dev) for w in set(RADIX_WIDTHS)}
-    prefix = torch.zeros((p, b, 2), dtype=torch.int64, device=dev)
-    bits_done = 0
-    for w in RADIX_WIDTHS:
-        bits_done += w
-        base = prefix << w
-        cand = base[..., None] + iota[w]                           # [P, B, 2, 2^w]
-        cnt = count(keys, to_bits32(cand.reshape(p * b, 2 << w)), 32 - bits_done)
-        # the counts rise with the candidate and the widest reaches the
-        # rank, so the first candidate that does is the number that do not
-        prefix = base + (cnt.reshape(p, b, 2, 1 << w) < need).sum(-1)
-    os_ = key_to_float(prefix).transpose(0, 1)                   # [B, P, 2]
-    return os_[..., 0], os_[..., 1]
+    The ranks (``_dual_ranks``), then one call of the radix select
+    (``ops.radix_kernel.radix_select``, or its plain version, the
+    reference's 11-level schedule, with ``plain``) on the plane-major
+    storage [P, B, T, F]: the layered path hands over a [B, P] view of
+    kernel 1's plane-major output, whose transpose is already
+    contiguous; any other layout is copied into it first.  Valid frames
+    above T count as T (the frontend passes none: its valid frames are
+    at most T - 1), so that the kernel and its plain version see the
+    same n."""
+    t, f = planes.shape[-2:]
+    vf = valid_frames.to(device=planes.device, dtype=torch.int32).clamp(max=t)
+    need = _dual_ranks(vf, f, quantile)
+    fn = radix_select_plain if plain else radix_select
+    return fn(planes.transpose(0, 1).contiguous(), vf, need)
 
 
 def binarize_spread_flat(

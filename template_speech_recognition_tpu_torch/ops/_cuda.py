@@ -145,6 +145,12 @@ def require(t: torch.Tensor, name: str, dtype, ndim: int) -> None:
     rank, or a non-contiguous layout."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    require_layout(t, name, dtype, ndim)
+
+
+def require_layout(t: torch.Tensor, name: str, dtype, ndim: int) -> None:
+    """``require`` without its device check (the CPU tests of a wrapper's
+    refusals run it on CPU tensors)."""
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.dim() != ndim:

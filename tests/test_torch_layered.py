@@ -1,7 +1,7 @@
 """The PyTorch port's layered frontend (the log-mel path) against the JAX
 reference, on the CPU.
 
-Kernel 1 in both modes, kernel 8 (radix counting pass) and kernel 9
+Kernel 1 in both modes, kernel 8 (the radix select) and kernel 9
 (binarize + frequency spread) run their plain PyTorch versions here
 (CPU tensors); the reference runs its Pallas kernels in interpret mode.
 Inputs come from numpy with fixed seeds.  Tolerances: the planes as in
@@ -47,10 +47,7 @@ from template_speech_recognition_tpu_torch.ops.binspread_kernel import (
     binarize_freqspread,
     binarize_freqspread_plain,
 )
-from template_speech_recognition_tpu_torch.ops.radix_kernel import (
-    radix_level_counts,
-    radix_level_counts_plain,
-)
+from template_speech_recognition_tpu_torch.ops.radix_kernel import radix_level_counts_plain
 
 MEL = FrontendConfig(use_mel=True)             # n_mels 64 -> F' = 63, D = 504
 JMEL = JFrontendConfig(use_mel=True)
@@ -119,8 +116,8 @@ def test_four_planes_match_reference(nfft, n_mels):
 
 
 def test_radix_level_counts_match_reference():
-    """Kernel 8's plain version and wrapper against the reference kernel
-    in interpret mode: R = 5 rows (not a multiple of 8), N = 2500 (not a
+    """The TPU kernel's counting pass in plain PyTorch (the plain select's
+    levels) against the reference kernel in interpret mode: R = 5 rows (not a multiple of 8), N = 2500 (not a
     multiple of its 1024-key block), masked keys, the candidates of real
     select levels and random ones.  Bitwise, except that the reference
     also counts its 0xFFFFFFFF padding toward the all-ones candidate:
@@ -148,10 +145,9 @@ def test_radix_level_counts_match_reference():
             want = want - pad * (cand >= allones)
             args = (torch.from_numpy(keys.view(np.int32)),
                     torch.from_numpy(cand.view(np.int32)), shift)
-            for fn in (radix_level_counts_plain, radix_level_counts):
-                got = fn(*args)
-                assert got.dtype == torch.int32
-                np.testing.assert_array_equal(got.numpy(), want)
+            got = radix_level_counts_plain(*args)
+            assert got.dtype == torch.int32
+            np.testing.assert_array_equal(got.numpy(), want)
 
 
 def _random_planes(b, p, t, f, seed=0):

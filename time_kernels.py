@@ -1,7 +1,8 @@
 """Times kernel 1 (log-magnitude and mel mode), kernel 2 (select +
 binarize + spread), kernel 3 (the block DFT), kernel 5 (the iDFT),
-kernel 6 (the int8 bin matmul) and kernel 10 (the direct correlation)
-of the port in one or more
+kernel 6 (the int8 bin matmul), kernel 10 (the direct correlation) and
+the layered frontend's whole radix select (kernel 8 and what surrounds
+it) of the port in one or more
 checkouts, at the streaming scan's bench shape, by one method:
 ``chip_smoke.time_ms`` over loops of 100 launches (device time; kernel
 10, milliseconds a launch, over loops of 10) and over one launch (the
@@ -16,7 +17,13 @@ bin matmul reads the bank's K-major copy gets it and rows padded to 16
 bytes, as its scan passes them; an older one gets the contiguous
 operands its scan passed.  Kernel 10 takes the reference's bench shape
 (B 8, T 3000, K 1024, L 32, D 2048) and one utterance of it (B 1):
-random binary bf16 maps at 0.2 density, a random bf16 bank.  Inputs
+random binary bf16 maps at 0.2 density, a random bf16 bank.  The
+layered select is ``plane_order_statistics`` as the log-mel scan calls
+it: a [B, P] view of random normal plane-major planes [4, 8, 3072, 63],
+2997 valid frames (30 s), q 0.98; a checkout with the 11-launch select
+makes its keys, 11 counting launches and the digit picks on the host's
+enqueue (over loops of 100, its time is then the host's where that is
+longer than the device's), one with ``radix_select`` one call.  Inputs
 come from seed 0.
 
     python3 time_kernels.py ROOT [ROOT ...]
@@ -41,6 +48,7 @@ TWO_BINS, HOP, NBLK, B, K = 160, 128, 24, 8, 1024              # nfft 159, L 32
 T_PAD, F, VALID, QUANTILE = 3072, 256, 2998, 0.98              # kernel 2
 T_CORR, L_CORR, D_CORR, DENSITY = 3000, 32, 2048, 0.2         # kernel 10
 BINS, NFFT_S = 80, 159                                         # kernels 3, 6: m = B x NBLK
+F_MEL, VALID_MEL = 63, 2997                                    # the layered select
 
 
 def one(root: str) -> dict:
@@ -50,6 +58,7 @@ def one(root: str) -> dict:
     import torch
 
     from template_speech_recognition_tpu_torch.detect.fft_scorer import _dft_mats
+    from template_speech_recognition_tpu_torch.frontend import planes as fp
     from template_speech_recognition_tpu_torch.frontend.planes import _dual_ranks
     from template_speech_recognition_tpu_torch.ops import correlation_kernel as k10
     from template_speech_recognition_tpu_torch.ops import fft_binmm_kernel as k6
@@ -72,11 +81,14 @@ def one(root: str) -> dict:
     maps = (torch.rand(B, T_CORR, D_CORR, device=dev, generator=g) < DENSITY).to(torch.bfloat16)
     w = torch.randn(K, L_CORR, D_CORR, device=dev, generator=g).to(torch.bfloat16)
     map1 = maps[:1].contiguous()
+    planes8 = torch.randn(4, B, T_PAD, F_MEL, device=dev, generator=g).transpose(0, 1)
+    valid8 = torch.full((B,), VALID_MEL, dtype=torch.int32, device=dev)
     calls = {
         "frontend_planes": lambda: k1.edge_response_planes(frames, NFFT),
         "frontend_planes_mel": lambda: k1.edge_response_planes(frames, NFFT, SR, N_MELS),
         "select_binspread": lambda: k2.select_binspread(planes, need, valid, 1, 1),
         "fft_idft": lambda: k5.fft_idft(ycat, imat, c, NBLK),
+        "layered_select": lambda: fp.plane_order_statistics(planes8, valid8, QUANTILE),
     }
     for d in (2048, 504):
         dp = -(-d // 16) * 16
