@@ -24,7 +24,10 @@
    trace; bitwise, two launches equal, timed over 100 calls queued behind
    a device sleep, so the events time the device, not the enqueue; the
    yardstick is ``torch.kthvalue`` for both ranks; the whole
-   ``plane_order_statistics`` timed as one call, ``sel_ms``), binarize + spread, the
+   ``plane_order_statistics`` timed as one call, ``sel_ms``), binarize + spread
+   (kernel 9, bitwise at rt 0 and at the scan's rt 1, and
+   ``binarize_spread_flat`` as one launch against its plain path and
+   against the kernel at rt 0 with the caller's old passes), the
    layered path against the two-kernel path at the default shape
    (bitwise), and the block DFT, pair LLR and the int8 and bf16 bin
    matmuls at D = 504 (on the log-mel scan's own map, spectra and banks,
@@ -900,10 +903,15 @@ def small_shape_checks(torch, dev, audio, k1, k2, k3, k4, k5, kp, kd, k8, k9, kc
 
     radix_checks(torch, dev, k8, fp, rng, say)
 
-    # order statistics and binarize + spread at F = 39 and 63, T not a
-    # multiple of the 32-row tile, an utterance with no valid row, a
-    # strided [B, P] view of plane-major planes, rf 0, 1 and 2
-    for f_s, t_s, rf, rt in ((39, 250, 0, 0), (63, 250, 2, 1), (63, 77, 1, 1)):
+    # order statistics and binarize + spread at F = 39, 63, 65 and 513
+    # (words of the bit masks past one and across many), T not a multiple
+    # of the 32-row tile and odd (tiles whose first flat byte is not
+    # 16-byte aligned), an utterance with no valid row, a strided [B, P]
+    # view of plane-major planes, rf and rt 0, 1 and 2; kernel 9 with
+    # its time spread, and binarize_spread_flat, bitwise against both
+    # plain versions
+    for f_s, t_s, rf, rt in ((39, 250, 0, 0), (63, 250, 2, 1), (63, 77, 1, 1),
+                             (63, 33, 0, 2), (65, 130, 1, 2), (513, 71, 1, 1)):
         x = rng.standard_normal((4, 3, t_s, f_s)).astype(np.float32)
         x[:, :, : t_s // 3] = np.round(x[:, :, : t_s // 3] * 4) / 4
         x[:, :, 5, :7] = -0.0
@@ -918,23 +926,49 @@ def small_shape_checks(torch, dev, audio, k1, k2, k3, k4, k5, kp, kd, k8, k9, kc
         check(bool(torch.equal(k9.binarize_freqspread(*args9),
                                k9.binarize_freqspread_plain(*args9))),
               f"binspread (small, F={f_s}, T={t_s}, rf={rf}): not bitwise")
+        check(bool(torch.equal(k9.binarize_freqspread(*args9, rt),
+                               k9.binarize_freqspread_plain(*args9, rt))),
+              f"binspread (small, F={f_s}, T={t_s}, rf={rf}, rt={rt}): not bitwise")
         check(bool(torch.equal(
             fp.binarize_spread_flat(pl, hi, lo, vs, rt, rf),
             fp.binarize_spread_flat(pl, hi, lo, vs, rt, rf, plain=True))),
             f"binarize_spread_flat (small, F={f_s}): not bitwise")
+    rows_fn = _cuda.load("binspread").tsr_binspread_tile_rows
+    rows_fn.argtypes, rows_fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    for p_s, f_s, rt in ((4, 63, 1), (4, 63, 0), (4, 65, 2), (4, 512, 1), (4, 513, 1)):
+        check(rows_fn(p_s, f_s, rt) == k9.tile_rows(p_s, f_s, rt),
+              f"binspread: the kernel's tile rows at P {p_s}, F {f_s}, rt {rt} are not "
+              f"tile_rows'")
 
     # pair LLR: windows into the next utterance and past the map's end,
-    # L and m not multiples of the 32 x 40 output tile; D = 504 leaves
-    # the last 32-wide contraction chunk a quarter empty
-    for bb, tt, dd, kk, length, mm in ((2, 50, 64, 5, 6, 16), (3, 40, 96, 4, 40, 48),
-                                       (2, 40, 504, 4, 32, 40)):
+    # L and m not multiples of the output tiles (L 6, 40, 64; m 16, 40,
+    # 48); D = 64 and 96 (one partial stage; 96 rows are not 16-byte
+    # multiples), D = 504 leaves the last 128-wide stage partial; ids out
+    # of range, one id for every pair, every id once
+    _cuda.reset_launches()
+    n_llr = 0
+    for bb, tt, dd, kk, length, mm, ids_kind in (
+            (2, 50, 64, 5, 6, 16, "mixed"), (3, 40, 96, 4, 40, 48, "mixed"),
+            (2, 40, 504, 4, 32, 40, "mixed"), (2, 60, 504, 9, 32, 40, "same"),
+            (3, 40, 2048, 40, 32, 40, "distinct"), (2, 40, 2048, 3, 64, 40, "mixed")):
         fmap = torch.from_numpy(rng.random((bb, tt, dd)) < 0.3).to(dev)
         wq = torch.randn(kk, length, dd, device=dev).to(torch.bfloat16)
-        rs = torch.tensor([0, 3, tt - 4, tt + 5, bb * tt - 9, bb * tt - 2, bb * tt - 1],
-                          dtype=torch.int32, device=dev)
-        ids = torch.tensor([0, kk - 1, 1, 2, 3, 0, 1], dtype=torch.int32, device=dev) % kk
+        rs_np = rng.integers(0, bb * tt, 37).astype(np.int32)
+        rs_np[:7] = (0, 3, tt - 4, tt + 5, bb * tt - 9, bb * tt - 2, bb * tt - 1)
+        rs = torch.from_numpy(rs_np).to(dev)
+        if ids_kind == "same":
+            ids_np = np.full(37, 2, np.int32)
+        elif ids_kind == "distinct":
+            ids_np = rng.permutation(kk)[:37].astype(np.int32)
+        else:
+            ids_np = rng.integers(-2, kk + 2, 37).astype(np.int32)
+        ids = torch.from_numpy(ids_np).to(dev)
         close(kp.pair_llr(fmap, wq, rs, ids, mm), kp.pair_llr_plain(fmap, wq, rs, ids, mm),
-              1e-5, f"pair_llr (L={length}, m={mm})")
+              1e-5, f"pair_llr (L={length}, D={dd}, m={mm}, ids {ids_kind})")
+        n_llr += 1
+    ran = _cuda.launch_counts().get(kp.NAME, 0)
+    check(ran == n_llr, f"pair_llr: {ran} launches for {n_llr} calls")
+    say(f"pair_llr: within 1e-5 x max|ref| at {n_llr} small shapes, {ran} launches")
 
     # direct correlation: T'' not a multiple of the 192-start tile, K = 1,
     # 3 and 129 (a template tile past K), D = 40 and 504 (a partial last
@@ -1145,14 +1179,57 @@ def mel_kernel_checks(torch, M, dev, wavs, nvalid, valid, frames2, bank_mel, rec
     del keys64, pm4
 
     # kernel 9 on the kernel-1 planes (a strided [B, P] view) with the
-    # selected statistics; bitwise
+    # selected statistics; bitwise at rt = 0 (the TPU kernel's function)
+    # and at the scan's rt = 1, and through binarize_spread_flat against
+    # its plain path (the kernel's plain version, the time dilation and
+    # the row mask); two launches equal
+    rt = mcfg.spread_time
+    check(rt == 1, f"the log-mel scan's spread_time is {rt}")
     args9 = (planes, os_hi.contiguous(), os_lo.contiguous(), valid, mcfg.spread_freq)
     m9 = k9.binarize_freqspread(*args9)
     check(bool(torch.equal(m9, k9.binarize_freqspread_plain(*args9))), "binspread: not bitwise")
+    m9t = k9.binarize_freqspread(*args9, rt)
+    check(bool(torch.equal(m9t, k9.binarize_freqspread_plain(*args9, rt))),
+          f"binspread (rt {rt}): not bitwise")
+    check(bool(torch.equal(m9t, k9.binarize_freqspread(*args9, rt))),
+          "binspread: two launches differ")
+    flat_args = (planes, os_hi.contiguous(), os_lo.contiguous(), valid, rt, mcfg.spread_freq)
+    whole = fp.binarize_spread_flat(*flat_args)
+    check(bool(torch.equal(whole, fp.binarize_spread_flat(*flat_args, plain=True))),
+          "binarize_spread_flat: not bitwise against its plain path")
+    check(whole.dtype == torch.bool, "binarize_spread_flat: dtype")
+    _cuda.reset_launches()
+    ops9 = device_op_names(torch, lambda: fp.binarize_spread_flat(*flat_args))
+    check(_cuda.launch_counts().get(k9.NAME, 0) == 1, "binarize_spread_flat: launches")
+    if ops9 is not None:
+        check(len(ops9) == 1, f"binarize_spread_flat enqueues {ops9}")
+
+    def caller_passes():
+        """binarize_spread_flat as it was before the time spread moved into
+        the kernel: the kernel at rt = 0, then the time dilation, the row
+        mask and the cast to bool, each a pass of its own."""
+        from template_speech_recognition_tpu_torch.ops.edges import _dilate_axis
+
+        fl = _dilate_axis(k9.binarize_freqspread(*args9), rt, 1)
+        return fl.to(torch.bool) & (torch.arange(t_pad, device=dev)[None, :, None]
+                                    < valid[:, None, None])
+
+    check(bool(torch.equal(caller_passes(), whole)), "the caller's passes give another map")
+    ops_old = device_op_names(torch, caller_passes)
+    ms9t = time_ms(torch, lambda: k9.binarize_freqspread(*args9, rt), loop=100)
+    ms90 = time_ms(torch, lambda: k9.binarize_freqspread(*args9), loop=100)
+    whole_ms = time_ms(torch, lambda: fp.binarize_spread_flat(*flat_args))
+    old_ms = time_ms(torch, caller_passes)
+    say(f"binspread at rt {rt} (the log-mel scan's call, the kernels line's row): {ms9t:.4f} "
+        f"ms; at rt 0 (the TPU kernel's function) {ms90:.4f} ms (loops of 100); "
+        f"the whole binarize_spread_flat, one call between the events {whole_ms:.4f} ms, "
+        f"{len(ops9) if ops9 else 'not measured'} device op(s), against the kernel at rt 0 "
+        f"+ the caller's passes {old_ms:.4f} ms, "
+        f"{len(ops_old) if ops_old else 'not measured'} device ops; bitwise")
+    del whole, m9t
     record(
-        k9, 0.0, "bitwise",
-        time_ms(torch, lambda: k9.binarize_freqspread(*args9), loop=100),
-        time_ms(torch, lambda: k9.binarize_freqspread_plain(*args9)),
+        k9, 0.0, "bitwise", ms9t,
+        time_ms(torch, lambda: k9.binarize_freqspread_plain(*args9, rt)),
         None,      # no single PyTorch call binarizes and dilates
         # only rows below valid are read; the whole map is written
         4 * int(valid.sum()) * f * 4 + m9.numel() + 2 * os_hi.numel() * 4 + B * 4,
@@ -1185,10 +1262,9 @@ def mel_kernel_checks(torch, M, dev, wavs, nvalid, valid, frames2, bank_mel, rec
     ids = torch.from_numpy(rng.integers(0, K, B * top_k).astype(np.int32)).to(dev)
     rowstart = (torch.arange(B, device=dev)[:, None] * t_pad + times).reshape(-1)
     args_p = (fm.binary, w16, rowstart.to(torch.int32), ids, m_llr)
-    llr = kp.pair_llr(*args_p)
     llr_ref = kp.pair_llr_plain(*args_p)
-    err_p = float((llr - llr_ref).abs().max())
     ref_p = float(llr_ref.abs().max())
+    err_p = float((kp.pair_llr(*args_p) - llr_ref).abs().max())
     check(err_p <= 1e-5 * ref_p, f"pair_llr (D=504): {err_p} > 1e-5 * {ref_p}")
     ms_p = time_ms(torch, lambda: kp.pair_llr(*args_p), loop=100)
     wf_m, cf_m = bank_mel.llr()
@@ -1229,7 +1305,7 @@ def mel_kernel_checks(torch, M, dev, wavs, nvalid, valid, frames2, bank_mel, rec
     )
     del y4, y4_ref, x2, fbank16
     say(f"at D = 504: pair_llr max error {err_p:.3g} (1e-5 x {ref_p:.4g} allowed) "
-        f"{ms_p:.4f} ms (100 launches)")
+        f"{ms_p:.4f} ms (loops of 100)")
 
 
 def main() -> int:
@@ -1262,6 +1338,7 @@ def main() -> int:
         radix_kernel as k8,
         selbin_kernel as k2,
     )
+    from template_speech_recognition_tpu_torch.align import dtw as dtw_mod
     from template_speech_recognition_tpu_torch.ops.dft import dft_matrices
     from template_speech_recognition_tpu_torch.ops.layout import (
         filters_to_flat,
@@ -1609,6 +1686,7 @@ def main() -> int:
     err_p = float((llr - llr_ref).abs().max())
     ref_p = float(llr_ref.abs().max())
     check(err_p <= 1e-5 * ref_p, f"pair_llr: {err_p} > 1e-5 * {ref_p}")
+    check(bool(torch.equal(llr, kp.pair_llr(*args_p))), "pair_llr: two launches differ")
     rows_g = rowstart.long()[:, None] + torch.arange(m_llr, device=dev)
     seg_g = fmap.reshape(B * t_pad, d)[rows_g.clamp(max=B * t_pad - 1)].to(torch.bfloat16)
     wk_g = w16[ids.long()]
@@ -1627,9 +1705,12 @@ def main() -> int:
         bytes_p, 2 * n_pairs * L * m_llr * d, BF16_FLOPS,
     )
     host_p = host_us(torch, lambda: kp.pair_llr(*args_p))
+    _cuda.reset_launches()
+    ops_p = device_op_names(torch, lambda: kp.pair_llr(*args_p))
     say(f"pair_llr: {n_rows_p} distinct map rows, {n_ids_p} distinct templates, "
         f"{bytes_p / 1e6:.1f} MB least bytes; host {host_p:.1f} us a call (the looped "
-        f"event time is the device's where it is larger)")
+        f"event time is the device's where it is larger); two launches bitwise equal; one "
+        f"call enqueues {ops_p}")
     del seg_g, wk_g, covered
 
     # banded DTW on those tiles as the rescore makes them; bitwise on
@@ -1758,7 +1839,30 @@ def main() -> int:
     dtw_cfg = C.PipelineConfig(detect=C.DetectConfig(
         batch_size=B, dtw_rescore=True, int8_spectra=True))
     check(dtw_cfg.dtw.top_r == 1, "verify-the-winner is the default")
-    detect_corpus_stream(corpus.head(B), bank, dtw_cfg, target_phone="aa")   # warm-up
+    # the warm-up batch's pair LLR operands, as the scan hands them over,
+    # held against the plain version
+    seen = []
+    real_llr = dtw_mod.pair_llr
+
+    def recording_llr(*a):
+        seen.append([x.clone() if torch.is_tensor(x) else x for x in a])
+        return real_llr(*a)
+
+    dtw_mod.pair_llr = recording_llr
+    try:
+        detect_corpus_stream(corpus.head(B), bank, dtw_cfg, target_phone="aa")   # warm-up
+    finally:
+        dtw_mod.pair_llr = real_llr
+    check(len(seen) == 1, f"the warm-up batch called pair_llr {len(seen)} times")
+    a_s = seen[0]
+    got_s, want_s = kp.pair_llr(*a_s), kp.pair_llr_plain(*a_s)
+    err_s, top_s = float((got_s - want_s).abs().max()), float(want_s.abs().max())
+    check(err_s <= 1e-5 * top_s, f"pair_llr on the DTW scan's ids: {err_s} > 1e-5 * {top_s}")
+    ms_s = time_ms(torch, lambda: kp.pair_llr(*a_s), loop=100)
+    say(f"pair_llr on the DTW scan's own operands ({a_s[2].numel()} pairs, "
+        f"{int(torch.unique(a_s[3]).numel())} distinct ids): max error {err_s:.3g} "
+        f"(1e-5 x {top_s:.4g} allowed); {ms_s:.4f} ms (loops of 100)")
+    del seen, a_s, got_s, want_s
     torch.cuda.synchronize()
     _cuda.reset_launches()
     t0 = time.perf_counter()
@@ -1832,6 +1936,9 @@ def main() -> int:
             check(counts.get(name, 0) == 0, f"the {label} launched {name}")
         check(counts.get("radix_select", 0) == ctr["batches"],
               f"{label}: {counts.get('radix_select', 0)} radix_select calls for "
+              f"{ctr['batches']} batches")
+        check(counts.get("binspread", 0) == ctr["batches"],
+              f"{label}: {counts.get('binspread', 0)} binspread calls for "
               f"{ctr['batches']} batches")
         if not dkw:
             take_launches(rows, ("frontend_planes_mel", "radix_select", "binspread"), counts)

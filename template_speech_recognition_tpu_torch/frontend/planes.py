@@ -11,8 +11,8 @@ paths compute one map, bit for bit:
 * the layered path: the same planes kernel, then the order statistics
   by a radix select that is one kernel call (``ops.radix_kernel``:
   three histogram levels read the float planes, the digits are picked
-  on the device, no host sync), then binarize + frequency spread
-  (``ops.binspread_kernel``), time dilation and the row mask.
+  on the device, no host sync), then binarize + frequency and time
+  spread + the row mask in one kernel (``ops.binspread_kernel``).
 
 ``frontend_batch_flat`` takes the two-kernel path wherever both of its
 kernels take the shape (F a multiple of 4 and a DFT width of at most
@@ -41,7 +41,6 @@ from template_speech_recognition_tpu_torch.ops.binspread_kernel import (
     binarize_freqspread,
     binarize_freqspread_plain,
 )
-from template_speech_recognition_tpu_torch.ops.edges import _dilate_axis
 from template_speech_recognition_tpu_torch.ops.radix_kernel import (
     radix_select,
     radix_select_plain,
@@ -142,18 +141,14 @@ def binarize_spread_flat(
     plain: bool = False,
 ) -> torch.Tensor:                # [B, T, 2P*F] bool
     """Binarize both polarities of each plane, dilate, emit the flat
-    map: binarize + frequency spread in one pass
-    (``ops.binspread_kernel``, or its plain version with ``plain``),
-    then the time dilation and the row mask."""
-    t = planes.shape[2]
-    dev = planes.device
-    vf = valid_frames.to(device=dev, dtype=torch.int32)
+    map.  On the card one kernel launch (``ops.binspread_kernel``) does
+    it all, the time dilation and the row mask included; with ``plain``,
+    and on the CPU, the kernel's plain version does the same.  The u8
+    map is returned viewed as bool (no copy)."""
     fn = binarize_freqspread_plain if plain else binarize_freqspread
-    flat = fn(planes, os_hi.contiguous(), os_lo.contiguous(), vf, spread_freq)
-    if spread_time:
-        flat = _dilate_axis(flat, spread_time, 1)
-    row_valid = torch.arange(t, device=dev)[None, :, None] < vf[:, None, None]
-    return flat.to(torch.bool) & row_valid
+    vf = valid_frames.to(device=planes.device, dtype=torch.int32)
+    return fn(planes, os_hi.contiguous(), os_lo.contiguous(), vf, spread_freq,
+              spread_time).view(torch.bool)
 
 
 def _dual_ranks(valid_frames: torch.Tensor, f: int, quantile: float) -> torch.Tensor:

@@ -12,19 +12,25 @@ DP masks them.  The TPU kernel's 8-row alignment of the window start
 (a Mosaic constraint) is not carried over: each pair gathers its exact
 rows.
 
-CUDA design (``csrc/pair_llr.cu``): one block of 4 warps per pair,
-mma.sync bf16 with fp32 accumulation, the D contraction split across
-the warps in 32-wide chunks (D need only be a multiple of 8, as D = 8F'
-always is: the last chunk is zero-filled); fragments load straight from device memory (16 bytes of
-filter row, 8 bool bytes of map row per lane), and the bools become
-bf16 in registers, so no bf16 copy of the map is ever made.
+CUDA design (``csrc/pair_llr.cu``): one block of 4 warps a pair walks
+D in stages of 128; cp.async copies each stage's filter rows [32, 128]
+and window rows [40, 128] into a ring of 3 slots in shared memory (zero
+fill past D and outside the map), so the bytes in flight hold no
+registers and 4 blocks share an SM.  mma.sync bf16 with fp32
+accumulation, each stage split across the warps in 32-wide chunks (D
+need only be a multiple of 8, as D = 8F' always is: the last stage is
+zero-filled), 16 bytes of filter row and 8 bool bytes of map row a
+lane; the bools turn into bf16 in registers, so no bf16 copy of the map
+is ever made.
 
 What bounds it on the H100: bytes, counting each distinct map row the
 windows cover and each distinct filter the ids name once.  At the
 scan's shapes (984 pairs, m = 40, L = 32, D = 2048) with peaks spread
 at random, about 40 MB of map rows + 83 MB of filter rows (~630
 distinct templates) + 5 MB of output take about 0.04 ms at 3.35 TB/s;
-5.2 GFLOP of bf16 take 0.005 ms.
+5.2 GFLOP of bf16 take 0.005 ms.  The kernel reads a filter and a
+window for every pair (210 MB): grouping a template's pairs to read its
+filter once cost more warps than it saved bytes (``PERF.md``).
 """
 
 from __future__ import annotations
@@ -71,15 +77,14 @@ def pair_llr(feats, w, rowstart, ids, m: int) -> torch.Tensor:
                          f"rowstart {tuple(rowstart.shape)}, ids {tuple(ids.shape)}")
     if d % 8 or feats.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError(f"D={d} must be a multiple of 8 and the bases 16-byte aligned")
-    out = torch.empty((n, length, m), dtype=torch.float32, device=feats.device)
-    if n == 0 or m == 0:
+    dev = feats.device
+    out = torch.empty((n, length, m), dtype=torch.float32, device=dev)
+    if n == 0 or m == 0 or length == 0:
         return out
     lib = _cuda.load("pair_llr")
     fn = _cuda.declare(lib, "tsr_pair_llr", 5, 6)
-    err = fn(
-        _cuda.ptr(feats), _cuda.ptr(w), _cuda.ptr(rowstart), _cuda.ptr(ids),
-        _cuda.ptr(out), b * t, n, k, length, d, m, _cuda.stream_ptr(feats.device),
-    )
+    err = fn(_cuda.ptr(feats), _cuda.ptr(w), _cuda.ptr(rowstart), _cuda.ptr(ids),
+             _cuda.ptr(out), b * t, n, k, length, d, m, _cuda.stream_ptr(dev))
     _cuda.check(lib, err, NAME)
     _cuda.count_launch(NAME)
     return out

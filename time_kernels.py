@@ -1,9 +1,9 @@
 """Times kernel 1 (log-magnitude and mel mode), kernel 2 (select +
 binarize + spread), kernel 3 (the block DFT), kernel 5 (the iDFT),
-kernel 6 (the int8 bin matmul), kernel 10 (the direct correlation) and
-the layered frontend's whole radix select (kernel 8 and what surrounds
-it) of the port in one or more
-checkouts, at the streaming scan's bench shape, by one method:
+kernel 6 (the int8 bin matmul), kernel 9 (binarize + spread), kernel 10
+(the direct correlation), kernel 11 (the pair-LLR tiles) and the
+layered frontend's whole radix select (kernel 8 and what surrounds it)
+of the port in one or more checkouts, at the streaming scan's bench shape, by one method:
 ``chip_smoke.time_ms`` over loops of 100 launches (device time; kernel
 10, milliseconds a launch, over loops of 10) and over one launch (the
 wrapper's host time included).  Kernel 2 takes random normal planes [4,
@@ -23,8 +23,18 @@ it: a [B, P] view of random normal plane-major planes [4, 8, 3072, 63],
 2997 valid frames (30 s), q 0.98; a checkout with the 11-launch select
 makes its keys, 11 counting launches and the digit picks on the host's
 enqueue (over loops of 100, its time is then the host's where that is
-longer than the device's), one with ``radix_select`` one call.  Inputs
-come from seed 0.
+longer than the device's), one with ``radix_select`` one call.  Kernel
+9 takes those planes and the select's statistics, rf = 1: the kernel
+at rt = 0 (``binspread``), and the layered frontend's whole call
+``binarize_spread_flat`` at rt = 1 (``binarize_spread_flat``: a
+checkout whose kernel does not take the time spread runs it at rt = 0
+and then its time dilation, row mask and cast to bool).  Kernel 11
+takes the verify-the-winner rescore's pairs at the smoke test's shape
+(8 x 123 windows of 40 frames at random starts below 2998 in maps of
+8 x 3072 frames at 0.15 density, random ids of 1024 random bf16
+filters of L = 32) at D = 2048 and 504 (``pair_llr``,
+``pair_llr_d504``), through the wrapper.
+Inputs come from seed 0.
 
     python3 time_kernels.py ROOT [ROOT ...]
 
@@ -41,6 +51,8 @@ import os
 import subprocess
 import sys
 
+import numpy as np
+
 from chip_smoke import card_line, time_ms
 
 N_ROWS, FL, NFFT, SR, N_MELS = 8 * 3072, 400, 512, 16000, 64   # B 8 x T_pad 3072 frames
@@ -48,7 +60,8 @@ TWO_BINS, HOP, NBLK, B, K = 160, 128, 24, 8, 1024              # nfft 159, L 32
 T_PAD, F, VALID, QUANTILE = 3072, 256, 2998, 0.98              # kernel 2
 T_CORR, L_CORR, D_CORR, DENSITY = 3000, 32, 2048, 0.2         # kernel 10
 BINS, NFFT_S = 80, 159                                         # kernels 3, 6: m = B x NBLK
-F_MEL, VALID_MEL = 63, 2997                                    # the layered select
+F_MEL, VALID_MEL = 63, 2997                                    # the layered select, k9
+TOP_K, M_LLR, VALID_LLR, DENSITY_LLR = 123, 40, 2998, 0.15     # kernel 11
 
 
 def one(root: str) -> dict:
@@ -83,13 +96,29 @@ def one(root: str) -> dict:
     map1 = maps[:1].contiguous()
     planes8 = torch.randn(4, B, T_PAD, F_MEL, device=dev, generator=g).transpose(0, 1)
     valid8 = torch.full((B,), VALID_MEL, dtype=torch.int32, device=dev)
+    from template_speech_recognition_tpu_torch.ops import binspread_kernel as k9
+    from template_speech_recognition_tpu_torch.ops import pair_llr_kernel as k11
+
+    hi8, lo8 = fp.plane_order_statistics(planes8, valid8, QUANTILE)
+    hi8, lo8 = hi8.contiguous(), lo8.contiguous()
     calls = {
         "frontend_planes": lambda: k1.edge_response_planes(frames, NFFT),
         "frontend_planes_mel": lambda: k1.edge_response_planes(frames, NFFT, SR, N_MELS),
         "select_binspread": lambda: k2.select_binspread(planes, need, valid, 1, 1),
         "fft_idft": lambda: k5.fft_idft(ycat, imat, c, NBLK),
         "layered_select": lambda: fp.plane_order_statistics(planes8, valid8, QUANTILE),
+        "binspread": lambda: k9.binarize_freqspread(planes8, hi8, lo8, valid8, 1),
+        "binarize_spread_flat": lambda: fp.binarize_spread_flat(planes8, hi8, lo8, valid8, 1, 1),
     }
+    rng = np.random.default_rng(0)
+    times = torch.from_numpy(rng.integers(0, VALID_LLR, (B, TOP_K))).to(dev)
+    ids = torch.from_numpy(rng.integers(0, K, B * TOP_K).astype(np.int32)).to(dev)
+    rowstart = (torch.arange(B, device=dev)[:, None] * T_PAD + times).reshape(-1).to(torch.int32)
+    for d in (2048, 504):
+        fmap = torch.rand(B, T_PAD, d, device=dev, generator=g) < DENSITY_LLR
+        w16 = torch.randn(K, L_CORR, d, device=dev, generator=g).to(torch.bfloat16)
+        calls["pair_llr" if d == 2048 else "pair_llr_d504"] = (
+            lambda fmap=fmap, w16=w16: k11.pair_llr(fmap, w16, rowstart, ids, M_LLR))
     for d in (2048, 504):
         dp = -(-d // 16) * 16
         buf = torch.zeros((2, BINS, B * NBLK, dp), dtype=torch.int8, device=dev)
