@@ -48,10 +48,22 @@
    1, the pallas API path's launch), two rows tagged by ``shape``, each
    held to two launches bitwise equal; its yardstick is ``conv1d`` in
    bf16.
+   The DTW kernel (kernels 12 and 13: the LLR tile in, the score out,
+   one launch for every route) is held bitwise (finite scores, -inf
+   alike) to its plain twin on the scan's pair-LLR tiles with the winner
+   ids as c rows, and its raw mode (cost tile in, terminals out) to
+   ``banded_dtw_plain``; the unfused stage (the cost prologue, the
+   raw kernel, the score's ops) is timed beside the one launch, the map
+   route's device ops are read from a trace (nothing may run between
+   ``pair_llr``'s kernel and the DTW kernel), and rows 12 and 13 are
+   printed beside their targets (0.006 and 0.012 ms).
    It also runs every kernel once at small ragged shapes (partial
    tiles, odd nfft, an utterance with no valid row, ties and -0.0,
-   DTW at L = 32, 48, 96, 128 and 200 with ragged segment lengths and band
-   1, LLR windows past the map's end, F = 39 and 63, the radix select
+   DTW at L = 1, 32, 48, 96, 128, 200 and 256 and m 1024 with ragged
+   segment lengths and band 1, the DTW kernel's fused mode at L 96, m
+   1024, band 100 at L 32, L 1, L 256, the gathered route's m 38 and the
+   exhaustive route's strided view of a GEMM output, LLR windows past the
+   map's end, F = 39 and 63, the radix select
    bitwise at 12 shapes (F 39, 63, 64, 511 and 512, valid 0, 1, T - 1
    and T, ties, one-value planes, an unaligned base) x 4 quantiles x 3
    schedules and at ``FrontendConfig(nfft=1024)``'s planes of all 8
@@ -105,7 +117,8 @@
    them, are left out of the score class;
 4. runs the exhaustive DTW rescore (``DTWConfig.top_r = 0``: every peak
    against all 1024 templates) on one batch of 8 against the plain
-   versions;
+   versions, and traces it once: the fp32 GEMM's share of the device
+   time, the DTW kernel's and the elementwise kernels';
 5. drives the log-mel scan (``FrontendConfig(use_mel=True)``: the
    layered frontend) at full width over the same 19 utterances with a
    random bank of 1024 log-mel templates, then the log-mel scan with DTW
@@ -126,9 +139,10 @@
 The default, the DTW + int8 and the two log-mel scans are each run once
 more under ``torch.profiler``: the union of the device intervals in
 the scan loop, set against the untraced loop's wall time, is the
-device's busy share; the device operations a batch, the block DFT's
-device time a batch and share, and the copy kernels' (the map's cast
-to bf16 among them), are printed by name.
+device's busy share; the device operations a batch (for the DTW + int8
+scan beside its 118.7 with the DTW stage's elementwise ops), the block
+DFT's device time a batch and share, and the copy kernels' (the map's
+cast to bf16 among them), are printed by name.
 
 Any failed check exits non-zero without printing the result line.  The
 last three lines are the kernels JSON, the card's name and power
@@ -294,7 +308,7 @@ def report_busy(torch, say, label, run, build, ctr):
     built, built_names, n_built = device_ms_traced(torch, build)
     if total is None or built is None:
         say(f"{label}: device busy share not measured (the trace holds no device event)")
-        return
+        return None
     loop_ms = ctr["time_scan_s"] * 1e3
     scan_ms = total - built
     for name, ms in built_names.items():
@@ -311,6 +325,7 @@ def report_busy(torch, say, label, run, build, ctr):
         + f"; the block DFT kernel (fft_block_dft) {dft / nb:.4f} ms a batch, "
           f"{dft / scan_ms:.3f} of the device time; copy kernels (direct_copy: dtype casts, "
           f"the map's to bf16 among them) {cast / nb:.4f} ms a batch")
+    return (n_ops - n_built) / nb
 
 
 def bound_ms(nbytes: float, ops: float, rate: float):
@@ -999,7 +1014,8 @@ def small_shape_checks(torch, dev, audio, k1, k2, k3, k4, k5, kp, kd, k8, k9, kc
     # from 1 to M, pair counts that are not multiples of a block; band 1
     # leaves terminals unreachable
     for length, m, band, n in ((32, 40, 6, 37), (32, 40, 1, 37), (48, 56, 6, 21),
-                               (96, 104, 6, 19), (128, 136, 64, 13), (200, 40, 3, 5)):
+                               (96, 104, 6, 19), (128, 136, 64, 13), (200, 40, 3, 5),
+                               (1, 8, 3, 40), (256, 300, 100, 9), (32, 1024, 6, 11)):
         cost = torch.from_numpy(
             (rng.standard_normal((n, length, m)) + 2.0).astype(np.float32)).to(dev)
         lens_np = rng.integers(1, m + 1, n).astype(np.int32)
@@ -1008,6 +1024,58 @@ def small_shape_checks(torch, dev, audio, k1, k2, k3, k4, k5, kp, kd, k8, k9, kc
         check_terminals(torch, kd.banded_dtw(cost, lens, band),
                         kd.banded_dtw_plain(cost, lens, band),
                         f"banded_dtw (small, L={length}, band={band})")
+    dtw_fused_checks(torch, dev, kd, say)
+
+
+def check_scores(torch, got, ref, name):
+    """DTW scores: bitwise where the plain version is finite, -inf alike
+    elsewhere; returns the number of unreachable pairs."""
+    finite = torch.isfinite(ref)
+    check(bool(finite.any()), f"{name}: no reachable pair")
+    check(bool(torch.equal(got[finite], ref[finite])), f"{name}: finite scores not bitwise")
+    check(bool(torch.isneginf(got[~finite]).all()), f"{name}: unreachable pairs not at -inf")
+    return int((~finite).sum())
+
+
+def dtw_fused_checks(torch, dev, kd, say):
+    """The DTW kernel's fused mode (LLR tile in, score out) bitwise against
+    its plain twin at L 96, m 1024 (the ring of chunks turns ~33 times a
+    pair), band 100 at L 32, L 1, L 256, the gathered route's m 38
+    (152-byte rows; with a pair -> row index and with c_pairs), and the
+    exhaustive route's strided view of a [nb, M, K, L] GEMM output (one
+    length a segment, c row n % K); two launches bitwise equal."""
+    rng = np.random.default_rng(SEED + 15)
+    shapes = []
+    for label, length, m, band, n in (
+            ("L 96", 96, 104, 6, 77), ("m 1024", 32, 1024, 6, 21),
+            ("band 100 at L 32", 32, 40, 100, 37), ("L 1", 1, 8, 3, 70),
+            ("L 256", 256, 300, 100, 9), ("gathered m 38", 32, 38, 6, 53)):
+        llr = torch.from_numpy(
+            rng.standard_normal((n, length, m)).astype(np.float32) - 2.0).to(dev)
+        lens_np = np.clip(rng.integers(length - 4, m + 1, n), 1, m).astype(np.int32)
+        lens_np[:3] = (1, m, m + 2)                   # m + 2: no terminal cell
+        lens = torch.from_numpy(lens_np).to(dev)
+        c_tab = torch.randn(5, length, device=dev)
+        cid = torch.from_numpy(rng.integers(0, 5, n).astype(np.int32)).to(dev)
+        shapes.append((label, band, llr, lens, c_tab, cid))
+    label, band, llr, lens, c_tab, cid = shapes[-1]
+    shapes.append(("gathered m 38, c_pairs", band, llr, lens,
+                   c_tab[cid.long()].contiguous(), None))
+    nb, m, q, length = 12, 38, 41, 32
+    gemm = torch.from_numpy(
+        rng.standard_normal((nb, m, q, length)).astype(np.float32) - 2.0).to(dev)
+    lens_np = np.clip(rng.integers(length - 4, m + 1, nb), 1, m).astype(np.int32)
+    lens_np[0] = 1
+    shapes.append(("exhaustive GEMM view", 6, gemm.permute(0, 2, 3, 1),
+                   torch.from_numpy(lens_np).to(dev), torch.randn(q, length, device=dev), None))
+    for label, band, llr, lens, c_tab, cid in shapes:
+        name = f"banded_dtw fused ({label})"
+        got = kd.banded_dtw_scores(llr, lens, c_tab, band, cid)
+        check_scores(torch, got, kd.banded_dtw_scores_plain(llr, lens, c_tab, band, cid), name)
+        check(bool(torch.equal(got, kd.banded_dtw_scores(llr, lens, c_tab, band, cid))),
+              f"{name}: two launches differ")
+    say(f"banded_dtw fused mode: bitwise against its plain twin at {len(shapes)} shapes ("
+        + ", ".join(sh[0] for sh in shapes) + "); two launches equal at each")
 
 
 def take_launches(rows, names, counts, shape=None):
@@ -1713,27 +1781,69 @@ def main() -> int:
         f"call enqueues {ops_p}")
     del seg_g, wk_g, covered
 
-    # banded DTW on those tiles as the rescore makes them; bitwise on
-    # finite terminals
-    cost = -(llr + c_rows[ids.long()][:, :, None])
+    # the DTW kernel on those tiles as the map route hands them over (the
+    # LLR tile, the winner ids as c rows): one launch to the scores,
+    # bitwise on finite scores, -inf alike
     lens = torch.clamp(valid.long()[:, None] - times, 1, m_seg).reshape(-1).to(torch.int32)
-    tot = kd.banded_dtw(cost, lens, band)
-    tot_ref = kd.banded_dtw_plain(cost, lens, band)
-    n_unreach = check_terminals(torch, tot, tot_ref, "banded_dtw")
+    c32 = c_rows.to(torch.float32).contiguous()
+    args_d = (llr, lens, c32, band, ids)
+    sc = kd.banded_dtw_scores(*args_d)
+    n_unreach = check_scores(torch, sc, kd.banded_dtw_scores_plain(*args_d), "banded_dtw")
+    check(bool(torch.equal(sc, kd.banded_dtw_scores(*args_d))), "banded_dtw: two launches differ")
     cells = band_cells(torch, L, m_llr, lens, band)
+    n_ids_d = int(torch.unique(ids).numel())
+    ms_d = time_ms(torch, lambda: kd.banded_dtw_scores(*args_d), loop=100)
     record(
-        kd, 0.0, "bitwise on finite terminals",
-        time_ms(torch, lambda: kd.banded_dtw(cost, lens, band), loop=100),
-        time_ms(torch, lambda: kd.banded_dtw_plain(cost, lens, band)),
+        kd, 0.0, "bitwise on finite scores, -inf alike", ms_d,
+        time_ms(torch, lambda: kd.banded_dtw_scores_plain(*args_d)),
         None,      # no single PyTorch call computes a banded DTW
-        # least bytes: the in-band cost cells before seg_len, lens, out
-        cells * 4 + lens.numel() * 4 + tot.numel() * 4,
-        4 * cells, FP32_FLOPS,     # one add and three minimums per in-band cell
+        # least bytes: the in-band LLR cells before seg_len, the c rows the
+        # ids name, lens, ids and the scores
+        cells * 4 + n_ids_d * L * 4 + n_pairs * 12,
+        5 * cells, FP32_FLOPS,     # two adds and three minimums per in-band cell
     )
-    host_d = host_us(torch, lambda: kd.banded_dtw(cost, lens, band))
-    say(f"banded_dtw: {n_pairs} pairs, {cells} in-band cells, {n_unreach} unreachable; "
-        f"host {host_d:.1f} us a call; the bound above counts bytes and operations, the kernel is held by its "
-        f"chain of L + seg_len - 1 = {L + m_seg - 1} dependent diagonals a pair")
+
+    def old_stage():
+        """The stage unfused: the cost prologue, the kernel on the cost
+        tile (raw mode, terminals), the score's elementwise ops."""
+        cost_ = -(llr + c32[ids.long()][:, :, None])
+        return kd.scores_from_terminals(kd.banded_dtw(cost_, lens, band), lens, L)
+
+    check(bool(torch.equal(old_stage(), sc)), "banded_dtw: raw mode + elementwise ops != fused")
+    ms_old = time_ms(torch, old_stage, loop=100)
+    ops_old = device_op_names(torch, old_stage) or []
+    ops_new = device_op_names(torch, lambda: kd.banded_dtw_scores(*args_d)) or []
+    cost = -(llr + c32[ids.long()][:, :, None])
+    check_terminals(torch, kd.banded_dtw(cost, lens, band), kd.banded_dtw_plain(cost, lens, band),
+                    "banded_dtw (raw mode)")
+    ms_raw = time_ms(torch, lambda: kd.banded_dtw(cost, lens, band), loop=100)
+    host_d = host_us(torch, lambda: kd.banded_dtw_scores(*args_d))
+    say(f"banded_dtw: {n_pairs} pairs, {cells} in-band cells, {n_unreach} unreachable; fused "
+        f"(LLR tile in, scores out) {ms_d:.4f} ms, raw mode on the cost tile {ms_raw:.4f} ms "
+        f"(loops of 100; row 12's target <= 0.006 ms); the unfused stage (prologue, raw "
+        f"kernel, score ops) {ms_old:.4f} ms in "
+        f"{len(ops_old)} device ops against {len(ops_new)}; host {host_d:.1f} us a call; the "
+        f"chain is L + seg_len - 1 = {L + m_seg - 1} dependent diagonals a pair")
+    # the map route as the scan calls it: nothing between the two kernels
+    w_flat = filters_to_flat(w_rows)
+    ids_bp = ids.reshape(B, top_k)
+
+    def map_route():
+        return dtw_mod.dtw_pairwise_scores_from_map(fmap, times, ids_bp, w_flat, c_rows, valid,
+                                                    m_seg, band)
+
+    check(bool(torch.equal(map_route().reshape(-1), sc)), "map route: scores differ from the "
+          "kernels' on the same operands")
+    names_r = device_op_names(torch, map_route)
+    if names_r is None:
+        say("map route: device ops not measured (the trace holds no device event)")
+    else:
+        i_llr = max(i for i, nm in enumerate(names_r) if "pair_llr" in nm)
+        check(names_r[i_llr + 1:] == [nm for nm in names_r[i_llr + 1:] if "banded_dtw" in nm]
+              and len(names_r) == i_llr + 2,
+              f"map route: after pair_llr's kernel run {names_r[i_llr + 1:]}")
+        say(f"map route: {len(names_r)} device ops a call, pair_llr's kernel then banded_dtw's "
+            f"and nothing between or after: " + ", ".join(nm[:40] for nm in names_r))
     # the same kernel in the TPU's "band"/"full" regime (L > 64): 984
     # pairs of L = 96 templates, band 6 -> windows of 102 frames
     l96, m96 = 96, 104
@@ -1745,12 +1855,17 @@ def main() -> int:
                     kd.banded_dtw_plain(cost96, lens96, band), "banded_dtw (L=96)")
     ms96 = time_ms(torch, lambda: kd.banded_dtw(cost96, lens96, band), loop=100)
     plain96 = time_ms(torch, lambda: kd.banded_dtw_plain(cost96, lens96, band))
+    args96 = (-cost96, lens96, torch.randn(K, l96, device=dev), band, ids)
+    check_scores(torch, kd.banded_dtw_scores(*args96), kd.banded_dtw_scores_plain(*args96),
+                 "banded_dtw fused (L=96)")
+    ms96_f = time_ms(torch, lambda: kd.banded_dtw_scores(*args96), loop=100)
     cells96 = band_cells(torch, l96, m96, lens96, band)
     b96, _by = bound_ms(cells96 * 4 + n_pairs * 8, 4 * cells96, FP32_FLOPS)
     say(f"banded_dtw at L = {l96} ({n_pairs} pairs, band {band}, M = {m96}): bitwise; "
-        f"kernel {ms96:.4f} ms plain {plain96:.4f} ms bound {b96:.4f} ms (bytes; the "
-        f"chain is up to {l96 + l96 + band - 1} diagonals)")
-    del llr, llr_ref, cost, cost96, fbank8
+        f"kernel {ms96:.4f} ms (raw mode; row 13's target <= 0.012 ms), fused {ms96_f:.4f} "
+        f"ms; plain {plain96:.4f} ms; bound "
+        f"{b96:.4f} ms (bytes; the chain is up to {l96 + l96 + band - 1} diagonals)")
+    del llr, llr_ref, cost, cost96, args96, fbank8
     torch.cuda.empty_cache()
 
     # ---- the log-mel scan's kernels ------------------------------------
@@ -1886,9 +2001,12 @@ def main() -> int:
         f"loop {ctr['time_scan_s']:.4f} s; with the bank build {wall:.4f} s); mean device "
         f"time per batch ({ctr['batches']:.0f} batches): {stages} (CUDA events); "
         f"launches {counts}")
-    report_busy(torch, say, "DTW + int8 scan",
-                lambda: detect_corpus_stream(corpus, bank, dtw_cfg, target_phone="aa"),
-                bank_build(bank, int8_dtw=True), ctr)
+    ops_dtw = report_busy(torch, say, "DTW + int8 scan",
+                          lambda: detect_corpus_stream(corpus, bank, dtw_cfg, target_phone="aa"),
+                          bank_build(bank, int8_dtw=True), ctr)
+    if ops_dtw is not None:
+        say(f"DTW + int8 scan: {ops_dtw:.1f} device ops a batch (118.7 with the cost prologue "
+            f"and the score's ops outside the DTW kernel; target <= 111.7)")
     ref = detect_corpus_stream(corpus, bank, dtw_cfg, target_phone="aa", plain=True)
     check_scan_scores(res.detections, ref.detections, flips["default"], m_seg, 1e-4,
                       "DTW + int8 scan", say)
@@ -1909,6 +2027,19 @@ def main() -> int:
     ref = detect_corpus_stream(head, bank, ex_cfg, target_phone="aa", plain=True)
     say(f"exhaustive rescore (top_r 0, {B} x {top_k} peaks x {K} templates): {wall:.3f} s, "
         f"dtw stage {ctr.get('device_ms_dtw', 0.0):.3f} ms (CUDA events), launches {counts}")
+    total_ex, names_ex, n_ex = device_ms_traced(
+        torch, lambda: detect_corpus_stream(head, bank, ex_cfg, target_phone="aa"))
+    if total_ex is None:
+        say("exhaustive rescore: device time by name not measured (no device event traced)")
+    else:
+        gemm = sum(ms for nm, ms in names_ex.items() if "gemm" in nm.lower())
+        dtw_ex = sum(ms for nm, ms in names_ex.items() if "banded_dtw" in nm)
+        copies = sum(ms for nm, ms in names_ex.items()
+                     if "elementwise" in nm or "copy" in nm.lower())
+        say(f"exhaustive rescore, traced (one batch, bank build included): {total_ex:.3f} ms of "
+            f"device time in {n_ex} device ops; fp32 GEMM kernels {gemm:.3f} ms "
+            f"({gemm / total_ex:.3f}), banded_dtw {dtw_ex:.3f} ms ({counts.get('banded_dtw', 0)} "
+            f"launches), elementwise and copy kernels {copies:.3f} ms")
     check_scan_scores(res.detections, ref.detections, flips["default"], m_seg, 1e-4,
                       "exhaustive rescore", say)
     del res, ref

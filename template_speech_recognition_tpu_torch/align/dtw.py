@@ -6,12 +6,14 @@ Counterpart of ``template_speech_recognition_tpu.align.dtw``.  The DP
 
 runs over the band ``|j*(L-1) - i*(M-1)| <= band*(L-1)`` (M the valid
 segment length) with cost = -frame LLR, and a segment scores
-``-D[L-1, M-1] / (L + M)``; an out-of-band pair scores -inf.  The DP is
-``ops.dtw_kernel.banded_dtw`` (one CUDA kernel on the card) and the
-verify-the-winner cost tiles come straight from the feature map through
-``ops.pair_llr_kernel.pair_llr``.  The other products, which the
-reference leaves to XLA, are fp32 ``torch`` products: they assume
-PyTorch's default ``torch.backends.cuda.matmul.allow_tf32 = False``.
+``-D[L-1, M-1] / (L + M)``; an out-of-band pair scores -inf.  Every
+route hands its LLR product to ``ops.dtw_kernel.banded_dtw_scores`` (one
+CUDA kernel on the card: the cost, the DP and the score), with no
+elementwise op of its own between them; the verify-the-winner tiles come
+straight from the feature map through ``ops.pair_llr_kernel.pair_llr``.
+The other products, which the reference leaves to XLA, are fp32
+``torch`` products: they assume PyTorch's default
+``torch.backends.cuda.matmul.allow_tf32 = False``.
 
 ``plain=True`` runs the kernels' plain PyTorch versions on any device.
 """
@@ -22,8 +24,9 @@ import numpy as np
 import torch
 
 from template_speech_recognition_tpu_torch.ops.dtw_kernel import (
-    banded_dtw as _banded_dtw_kernel,
     banded_dtw_plain,
+    banded_dtw_scores,
+    banded_dtw_scores_plain,
 )
 from template_speech_recognition_tpu_torch.ops.pair_llr_kernel import (
     pair_llr,
@@ -34,13 +37,8 @@ from template_speech_recognition_tpu_torch.ops.pair_llr_kernel import (
 MAX_CELLS = 64 * 1024 * 1024
 
 
-def _dtw_fn(plain: bool):
-    return banded_dtw_plain if plain else _banded_dtw_kernel
-
-
-def _scores(total: torch.Tensor, lens: torch.Tensor, num_rows: int) -> torch.Tensor:
-    scores = -total / (num_rows + lens).to(torch.float32)
-    return torch.where(total > 1e37, float("-inf"), scores)
+def _scores_fn(plain: bool):
+    return banded_dtw_scores_plain if plain else banded_dtw_scores
 
 
 def banded_dtw(cost: torch.Tensor, seg_len, band: int) -> torch.Tensor:
@@ -71,14 +69,10 @@ def _keyword_chunk(segments, seg_lens, w, c_rows, band, plain):
     k, num_rows = w.shape[0], w.shape[1]
     seg = segments.reshape(nb * m_pad, -1).to(torch.float32)
     wf = w.reshape(k * num_rows, -1).to(torch.float32)
+    # the GEMM's [nb, M, K, L] output, read in place as [nb, K, L, M]
     llr = (seg @ wf.T).reshape(nb, m_pad, k, num_rows).permute(0, 2, 3, 1)
-    cost = -(llr + c_rows.to(torch.float32)[None, :, :, None])      # [nb, K, L, M]
-    lens = seg_lens.to(torch.int32)
-    total = _dtw_fn(plain)(
-        cost.reshape(nb * k, num_rows, m_pad).contiguous(),
-        lens.repeat_interleave(k), band,
-    ).reshape(nb, k)
-    return _scores(total, lens[:, None], num_rows)
+    return _scores_fn(plain)(llr, seg_lens.to(torch.int32),
+                             c_rows.to(torch.float32).contiguous(), band)
 
 
 def dtw_keyword_scores_batch(segments, seg_lens, w, c_rows, band: int,
@@ -87,10 +81,12 @@ def dtw_keyword_scores_batch(segments, seg_lens, w, c_rows, band: int,
     """[B, M_pad, F, E] (or [B, M_pad, D]) x [K, L, ...] -> scores [B, K]
     (exhaustive: every segment against every template).
 
-    The [B*K, L, M_pad] cost tensor is the memory hazard at scan scale
+    The [B, M_pad, K, L] LLR product is the memory hazard at scan scale
     (~5 GB for one 30 s batch at K = 1024), so segments go through in
-    chunks of at most ``_max_cells`` cost cells; each chunk is the same
-    computation on fewer rows, so the result equals the unchunked one."""
+    chunks of at most ``_max_cells`` cells; each chunk is one GEMM and
+    one DTW launch that reads the GEMM's output through its strides, the
+    same computation on fewer rows, so the result equals the unchunked
+    one."""
     b, k = segments.shape[0], w.shape[0]
     num_rows, m_pad = w.shape[1], segments.shape[1]
     chunk = max(1, min(b, _max_cells // max(k * num_rows * m_pad, 1)))
@@ -113,10 +109,8 @@ def dtw_pairwise_scores(segments, seg_lens, w_pairs, c_pairs, band: int,
     seg = segments.reshape(n, segments.shape[1], -1)
     wf = w_pairs.reshape(n, num_rows, -1)
     llr = torch.bmm(wf.to(torch.float32), seg.to(torch.float32).transpose(1, 2))
-    cost = -(llr + c_pairs.to(torch.float32)[:, :, None])           # [N, L, M]
-    lens = seg_lens.to(torch.int32)
-    total = _dtw_fn(plain)(cost.contiguous(), lens, band)
-    return _scores(total, lens, num_rows)
+    return _scores_fn(plain)(llr, seg_lens.to(torch.int32),
+                             c_pairs.to(torch.float32).contiguous(), band)
 
 
 def dtw_pairwise_scores_from_map(
@@ -131,8 +125,9 @@ def dtw_pairwise_scores_from_map(
     plain: bool = False,
 ) -> torch.Tensor:               # [B, P]
     """Verify-the-winner rescore straight from the feature map: each
-    pair's [L, m] cost tile comes from ``pair_llr`` (m = m_seg rounded
-    up to 8), with no gathered segment or filter copies; the filters
+    pair's [L, m] LLR tile comes from ``pair_llr`` (m = m_seg rounded
+    up to 8), with no gathered segment or filter copies, and goes to the
+    DTW kernel as it is, with the winner ids as its c rows; the filters
     enter as bf16, as in the reference.  Scores as
     ``dtw_pairwise_scores`` over gathered segments."""
     b, tdim = binary_flat.shape[0], binary_flat.shape[1]
@@ -142,13 +137,14 @@ def dtw_pairwise_scores_from_map(
     m = -(-m_seg // 8) * 8
     t_idx = times.to(torch.int64).clamp(0, tdim - 1)
     rowstart = (torch.arange(b, device=dev)[:, None] * tdim + t_idx).reshape(-1)
-    safe = ids.reshape(-1).to(torch.int64).clamp(0, k - 1)
+    safe = ids.reshape(-1).to(torch.int64).clamp(0, k - 1).to(torch.int32)
+    lens = torch.clamp(valid_frames.to(torch.int64)[:, None] - t_idx, 1, m_seg)
+    lens = lens.reshape(-1).to(torch.int32)
+    c32 = c_rows.to(torch.float32).contiguous()
     w16 = w_rows.reshape(k, num_rows, d).to(torch.bfloat16)
     llr_fn = pair_llr_plain if plain else pair_llr
     llr = llr_fn(binary_flat.reshape(b, tdim, d), w16, rowstart.to(torch.int32),
-                 safe.to(torch.int32), m)                       # [B*P, L, m]
-    cost = -(llr + c_rows.to(torch.float32)[safe][:, :, None])
-    lens = torch.clamp(valid_frames.to(torch.int64)[:, None] - t_idx, 1, m_seg)
-    lens = lens.reshape(-1).to(torch.int32)
-    total = _dtw_fn(plain)(cost, lens, band)
-    return _scores(total, lens, num_rows).reshape(times.shape)
+                 safe, m)                                       # [B*P, L, m]
+    # the winner's c row is read inside the kernel (cid): nothing runs
+    # between the two kernels
+    return _scores_fn(plain)(llr, lens, c32, band, cid=safe).reshape(times.shape)

@@ -1,7 +1,8 @@
 """Times kernel 1 (log-magnitude and mel mode), kernel 2 (select +
 binarize + spread), kernel 3 (the block DFT), kernel 5 (the iDFT),
 kernel 6 (the int8 bin matmul), kernel 9 (binarize + spread), kernel 10
-(the direct correlation), kernel 11 (the pair-LLR tiles) and the
+(the direct correlation), kernel 11 (the pair-LLR tiles), kernels 12
+and 13 (the banded DTW) with the DTW stage around them, and the
 layered frontend's whole radix select (kernel 8 and what surrounds it)
 of the port in one or more checkouts, at the streaming scan's bench shape, by one method:
 ``chip_smoke.time_ms`` over loops of 100 launches (device time; kernel
@@ -33,7 +34,18 @@ takes the verify-the-winner rescore's pairs at the smoke test's shape
 (8 x 123 windows of 40 frames at random starts below 2998 in maps of
 8 x 3072 frames at 0.15 density, random ids of 1024 random bf16
 filters of L = 32) at D = 2048 and 504 (``pair_llr``,
-``pair_llr_d504``), through the wrapper.
+``pair_llr_d504``), through the wrapper.  Kernels 12 and 13 take the
+same pairs' random LLR tiles [984, 32, 40] (seg_len = min(2998 - t,
+38)) and [984, 96, 104] (seg_len in [51, 102]), band 6, with c rows of
+1024 templates and the winner ids: ``banded_dtw`` and
+``banded_dtw_l96`` time the kernel on the cost tile -(llr + c) (terminals,
+the entry both checkouts have); ``dtw_stage`` and ``dtw_stage_l96`` the
+stage from LLR tile to scores as the checkout's map route runs it (one
+launch of ``banded_dtw_scores``, or the cost prologue, the kernel and the
+score's elementwise ops), and ``dtw_stage_exhaustive`` one chunk of the
+exhaustive rescore (53 segments of 38 frames x 1024 templates: the
+fp32 GEMM's [53, 38, 1024, 32] output, 264 MB, read in place, or
+permuted, offset, negated and copied first), over loops of 10.
 Inputs come from seed 0.
 
     python3 time_kernels.py ROOT [ROOT ...]
@@ -62,6 +74,38 @@ T_CORR, L_CORR, D_CORR, DENSITY = 3000, 32, 2048, 0.2         # kernel 10
 BINS, NFFT_S = 80, 159                                         # kernels 3, 6: m = B x NBLK
 F_MEL, VALID_MEL = 63, 2997                                    # the layered select, k9
 TOP_K, M_LLR, VALID_LLR, DENSITY_LLR = 123, 40, 2998, 0.15     # kernel 11
+BAND_DTW, NB_EX, M_EX = 6, 53, 38                              # kernels 12, 13
+
+
+def dtw_stage(torch, k12, llr, lens, c_rows, ids):
+    """The map route's stage from LLR tile to scores in the checkout:
+    one fused launch, or the cost prologue, the kernel on the cost tile
+    and the score's elementwise ops."""
+    if hasattr(k12, "banded_dtw_scores"):
+        return lambda: k12.banded_dtw_scores(llr, lens, c_rows, BAND_DTW, ids)
+
+    def stage():
+        total = k12.banded_dtw(-(llr + c_rows[ids.long()][:, :, None]), lens, BAND_DTW)
+        scores = -total / (llr.shape[1] + lens).to(torch.float32)
+        return torch.where(total > 1e37, float("-inf"), scores)
+    return stage
+
+
+def exhaustive_stage(torch, k12, gemm, lens, c_rows):
+    """One chunk of the exhaustive rescore from the GEMM's [nb, M, K, L]
+    output to the scores [nb, K], as the checkout runs it."""
+    nb, m, k, length = gemm.shape
+    view = gemm.permute(0, 2, 3, 1)
+    if hasattr(k12, "banded_dtw_scores"):
+        return lambda: k12.banded_dtw_scores(view, lens, c_rows, BAND_DTW)
+
+    def stage():
+        cost = -(view + c_rows[None, :, :, None])
+        total = k12.banded_dtw(cost.reshape(nb * k, length, m).contiguous(),
+                               lens.repeat_interleave(k), BAND_DTW).reshape(nb, k)
+        scores = -total / (length + lens[:, None]).to(torch.float32)
+        return torch.where(total > 1e37, float("-inf"), scores)
+    return stage
 
 
 def one(root: str) -> dict:
@@ -119,6 +163,20 @@ def one(root: str) -> dict:
         w16 = torch.randn(K, L_CORR, d, device=dev, generator=g).to(torch.bfloat16)
         calls["pair_llr" if d == 2048 else "pair_llr_d504"] = (
             lambda fmap=fmap, w16=w16: k11.pair_llr(fmap, w16, rowstart, ids, M_LLR))
+    from template_speech_recognition_tpu_torch.ops import dtw_kernel as k12
+
+    ids_l = ids.long()
+    for tag, length, m in (("", 32, 40), ("_l96", 96, 104)):
+        llr = torch.randn(B * TOP_K, length, m, device=dev, generator=g) - 2.0
+        if length == 32:
+            lens = torch.clamp(VALID_LLR - times.reshape(-1), 1, 38).to(torch.int32)
+        else:
+            lens = torch.from_numpy(rng.integers(51, 103, B * TOP_K).astype(np.int32)).to(dev)
+        c_rows = torch.randn(K, length, device=dev, generator=g)
+        cost = -(llr + c_rows[ids_l][:, :, None])
+        calls["banded_dtw" + tag] = (
+            lambda cost=cost, lens=lens: k12.banded_dtw(cost, lens, BAND_DTW))
+        calls["dtw_stage" + tag] = dtw_stage(torch, k12, llr, lens, c_rows, ids)
     for d in (2048, 504):
         dp = -(-d // 16) * 16
         buf = torch.zeros((2, BINS, B * NBLK, dp), dtype=torch.int8, device=dev)
@@ -144,6 +202,13 @@ def one(root: str) -> dict:
     out = {"root": root}
     for name, fn in calls.items():
         out[name] = {"loop100_ms": time_ms(torch, fn, loop=100), "one_launch_ms": time_ms(torch, fn)}
+    gemm = torch.randn(NB_EX, M_EX, K, L_CORR, device=dev, generator=g) - 2.0
+    lens_ex = torch.from_numpy(rng.integers(1, M_EX + 1, NB_EX).astype(np.int32)).to(dev)
+    c_ex = torch.randn(K, L_CORR, device=dev, generator=g)
+    fn = exhaustive_stage(torch, k12, gemm, lens_ex, c_ex)
+    out["dtw_stage_exhaustive"] = {"loop10_ms": time_ms(torch, fn, loop=10),
+                                   "one_launch_ms": time_ms(torch, fn)}
+    del gemm
     for name, x in (("correlation", maps), ("correlation_b1", map1)):
         fn = lambda x=x: k10.correlation_scores(x, w, c)      # noqa: E731
         out[name] = {"loop10_ms": time_ms(torch, fn, loop=10), "one_launch_ms": time_ms(torch, fn)}
