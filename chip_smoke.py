@@ -134,7 +134,25 @@
    one batch, whose int32 scores of one utterance are held bitwise
    against the same function on the CPU; and the same loop with DTW
    rescoring (verify-the-winner, f32 filters), whose DTW scores are held
-   against the CPU's rescore of the same peaks within 1e-5 x max|score|.
+   against the CPU's rescore of the same peaks within 1e-5 x max|score|;
+7. trains banks on the card (config 3) at the soak shape of ``soak.py``
+   (``SOAK_UTTS`` utterances a group, 4 groups of 25/50/75/100 phones,
+   seeds 100-103; the exemplars of aa and iy; F 256, E 8, K 4 components
+   x R 4 restarts, 30 EM iterations) and scans with them: the exemplar
+   maps (``pipeline._clip_feature_maps``, kernels 1 and 2 on 128 clips a
+   call) against the plain run's (<= 1e-3 of cells; the last chunk's
+   rows of no valid sample empty in both); ``bernoulli_mixture_em_restarts``
+   with tol 0 on one registered stack on the card and on the CPU (the
+   same winner, means within rtol 1e-4 / atol 1e-5, histories within
+   rtol 1e-4 / atol 1e-3, never falling by more than 1e-3); ``train_bank``,
+   ``TemplateBank.save`` and ``load``, and ``detect_corpus_stream`` of the
+   19 utterances with the loaded bank against its plain run; a parts
+   bank (``PartsConfig(enabled=True)``): the codes of the card and the
+   CPU on one dictionary (< 1e-3 of locations apart), and
+   ``detect_corpus`` routed to the per-utterance loop, against the plain
+   loop.  It prints the exemplar-map rate, EM's ms an iteration beside
+   its bytes bound, ``learn_parts``' wall, the coding rate and
+   ``train_bank``'s wall with and without parts.
 
 The default, the DTW + int8 and the two log-mel scans are each run once
 more under ``torch.profiler``: the union of the device intervals in
@@ -1376,6 +1394,272 @@ def mel_kernel_checks(torch, M, dev, wavs, nvalid, valid, frames2, bank_mel, rec
         f"{ms_p:.4f} ms (loops of 100)")
 
 
+# ---- config-3 training (the soak corpus of soak.py) ----------------------
+
+SOAK_UTTS = 75                     # utterances a group (soak.py); the cut, if any
+SOAK_PHONES = (25, 50, 75, 100)    # phones an utterance, group by group (seeds 100-103)
+TRAIN_PHONES = ("aa", "iy")
+
+
+def soak_corpus(utts_per_group: int):
+    """soak.py's corpus without JAX: four groups of synthetic utterances
+    with 25/50/75/100 phones each, seeds 100-103, interleaved."""
+    from oracle.fixtures import make_synthetic_corpus
+
+    from template_speech_recognition_tpu_torch.corpus import SyntheticAdapter
+
+    groups = [make_synthetic_corpus(num_utterances=utts_per_group, phones_per_utterance=ppu,
+                                    seed=100 + gi) for gi, ppu in enumerate(SOAK_PHONES)]
+    utts = [g.utterances[i] for i in range(utts_per_group) for g in groups]
+    return SyntheticAdapter(type(groups[0])(utts, groups[0].sample_rate,
+                                            groups[0].phone_names))
+
+
+def loop_flips(torch, fp, corpus, fcfg, dev):
+    """``map_flips`` for the per-utterance loop: each utterance's map
+    alone, kernels against plain -> {utterance: sorted frames holding a
+    cell the two set differently}."""
+    from template_speech_recognition_tpu_torch.scan import bucket_length
+
+    out = {}
+    for ui, (_u, wav, _p) in enumerate(corpus.iter_utterances()):
+        buf = torch.zeros((1, bucket_length(len(wav))), dtype=torch.float32)
+        buf[0, : len(wav)] = torch.from_numpy(wav)
+        nv = torch.tensor([len(wav)], dtype=torch.int32, device=dev)
+        mk = fp.frontend_batch_flat(buf.to(dev), nv, fcfg).binary[0]
+        mp = fp.frontend_batch_flat(buf.to(dev), nv, fcfg, plain=True).binary[0]
+        out[ui] = np.flatnonzero((mk != mp).any(dim=-1).cpu().numpy())
+    return out
+
+
+def training_phase(torch, dev, C, say, scan_corpus, scan_cfg, flips):
+    """Config 3 on the card at the soak shape (F 256, E 8, K 4, R 4), each
+    check against the plain versions or the CPU; the numbers printed
+    beside the card's name and power limit.  Returns nothing; a failed
+    check raises."""
+    import tempfile
+
+    from oracle.mixture import init_responsibilities
+
+    from template_speech_recognition_tpu_torch.frontend import features as ff
+    from template_speech_recognition_tpu_torch.frontend import planes as fp
+    from template_speech_recognition_tpu_torch.models import parts as mparts
+    from template_speech_recognition_tpu_torch.models.bank import TemplateBank
+    from template_speech_recognition_tpu_torch.models.mixture import (
+        bernoulli_mixture_em_restarts,
+    )
+    from template_speech_recognition_tpu_torch.models.template import register_exemplars
+    from template_speech_recognition_tpu_torch.ops import _cuda
+    from template_speech_recognition_tpu_torch.pipeline import (
+        _clip_feature_maps,
+        _detect_corpus_loop,
+        _host_maps,
+        detect_corpus,
+        train_bank,
+    )
+    from template_speech_recognition_tpu_torch.scan import bucket_length, detect_corpus_stream
+
+    k_comp, restarts, iters = 4, 4, 30
+    tcfg = C.PipelineConfig(template=C.TemplateConfig(
+        num_components=k_comp, em_restarts=restarts, em_max_iters=iters))
+    fcfg = tcfg.frontend
+    t0 = time.perf_counter()
+    corpus = soak_corpus(SOAK_UTTS)
+    n_utts = len(corpus.corpus.utterances)
+    clips = [c for ph in TRAIN_PHONES for c in corpus.exemplar_clips(ph)]
+    audio_s = sum(len(c) for c in clips) / corpus.sample_rate
+    usable = [c for c in clips if len(c) >= fcfg.frame_length + fcfg.hop_length]
+    n_calls = -(-len(usable) // 128)
+    say(f"training: soak corpus of {n_utts} utterances ({SOAK_UTTS} a group of "
+        f"{len(SOAK_PHONES)}, {'no cut' if SOAK_UTTS == 75 else 'cut from 75'}; "
+        f"{corpus.corpus.total_seconds:.1f} audio-s), {len(clips)} exemplars of "
+        f"{'/'.join(TRAIN_PHONES)} ({audio_s:.1f} audio-s), built on the host in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # exemplar maps: the card's against the plain versions'
+    _clip_feature_maps(clips[:128], tcfg, dev)                        # warm-up
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    stack, lengths = _clip_feature_maps(clips, tcfg, dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    counts = _cuda.launch_counts()
+    for name in ("frontend_planes", "select_binspread"):
+        check(counts.get(name, 0) == n_calls,
+              f"exemplar maps: {name} launched {counts.get(name, 0)}x")
+    stack_p, lengths_p = _clip_feature_maps(clips, tcfg, dev, plain=True)
+    check(np.array_equal(lengths, lengths_p) and stack.shape == stack_p.shape,
+          "exemplar maps: valid frames differ from the plain run's")
+    n_diff = int((stack != stack_p).sum())
+    check(n_diff <= 1e-3 * stack.numel(), f"exemplar maps: {n_diff} cells differ")
+    del stack_p
+    # the last chunk as the frontend gets it: rows of no valid sample
+    # after the clips, against the plain version's
+    tail = usable[-(len(usable) % 128 or 100):]
+    pad = bucket_length(max(len(c) for c in usable), quantum=4096)
+    wavs = torch.zeros((128, pad), dtype=torch.float32)
+    vs = torch.zeros((128,), dtype=torch.int32)
+    for r, c in enumerate(tail):
+        wavs[r, : len(c)] = torch.from_numpy(c)
+        vs[r] = len(c)
+    fk = ff.frontend_batch(wavs.to(dev), vs.to(dev), fcfg)
+    fpl = ff.frontend_batch(wavs.to(dev), vs.to(dev), fcfg, plain=True)
+    empty = len(tail)
+    check(bool(torch.equal(fk.valid_frames, fpl.valid_frames))
+          and not bool(fk.valid_frames[empty:].any())
+          and not bool(fk.binary[empty:].any()) and not bool(fpl.binary[empty:].any()),
+          "exemplar maps: the rows of no valid sample are not empty in both")
+    n_tail = int((fk.binary != fpl.binary).sum())
+    check(n_tail <= 1e-3 * fk.binary.numel(), f"exemplar maps, last chunk: {n_tail} cells")
+    say(f"training: exemplar maps {tuple(stack.shape)} in {build_s:.4f} s = "
+        f"{audio_s / build_s:.1f} audio-s/s ({n_calls} frontend calls of 128 "
+        f"clips padded to {pad} samples; launches {counts}); {n_diff} of {stack.numel()} "
+        f"cells unlike the plain run's (limit 1e-3); the last chunk's {128 - empty} rows of "
+        f"no valid sample empty in both, {n_tail} cells of it differ")
+
+    # EM on the card against EM on the CPU, on one registered stack
+    target = int(np.median(lengths))
+    x = register_exemplars(stack, lengths, target)
+    n = x.shape[0]
+    x = x.reshape(n, -1).to(torch.float32)
+    check(tuple(x.shape) == (n, target * fcfg.feature_freqs * 8), f"EM x {tuple(x.shape)}")
+    resps = np.stack([init_responsibilities(n, k_comp, r) for r in range(restarts)])
+    bernoulli_mixture_em_restarts(x, resps, num_iters=2, tol=0.0)     # warm-up
+    (sg, bg), em_ms = time_once(
+        torch, lambda: bernoulli_mixture_em_restarts(x, resps, num_iters=iters, tol=0.0))
+    it_g = int(sg.iteration)
+    total, names, n_ops = device_ms_traced(
+        torch, lambda: bernoulli_mixture_em_restarts(x, resps, num_iters=iters, tol=0.0))
+    if total is None:
+        say("training: EM's device time by name not measured (no device event traced)")
+    else:
+        gemm = sum(ms for nm, ms in names.items() if "gemm" in nm.lower()
+                   or "gemv" in nm.lower() or "splitk" in nm.lower())
+        top = sorted(names.items(), key=lambda kv: -kv[1])[:4]
+        say(f"training: EM traced ({it_g} iterations): {total / it_g:.4f} ms of device time "
+            f"an iteration (the union of its intervals) in {n_ops / it_g:.1f} device ops, "
+            f"GEMM kernels {gemm / it_g:.4f} ms an iteration; most device time: "
+            + ", ".join(f"{nm[:60]} {ms / it_g:.4f} ms" for nm, ms in top))
+    t0 = time.perf_counter()
+    sc, bc = bernoulli_mixture_em_restarts(x.cpu(), resps, num_iters=iters, tol=0.0)
+    cpu_s = time.perf_counter() - t0
+    it_c = int(sc.iteration)
+    hg, hc = sg.history.cpu().numpy(), sc.history.numpy()
+    common = min(it_g, it_c)
+    hist_ok = np.allclose(hg[:common], hc[:common], rtol=1e-4, atol=1e-3)
+    mean_err = float((sg.means.cpu() - sc.means).abs().max())
+    say(f"training: EM at x [{n}, {x.shape[1]}], R {restarts} x K {k_comp}, tol 0, "
+        f"{iters} iterations at most: card {it_g} iterations in {em_ms:.3f} ms = "
+        f"{em_ms / it_g:.4f} ms an iteration (one host sync an iteration), winner {bg}; "
+        f"CPU {it_c} iterations in {cpu_s:.2f} s, winner {bc}; bytes bound "
+        f"{2 * x.numel() * 4 / HBM_BPS * 1e3:.4f} ms an iteration (x read once by each "
+        f"of the two GEMMs); means max diff {mean_err:.3g}; final mean log-likelihood "
+        f"{float(sg.log_likelihood):.4f} (card) {float(sc.log_likelihood):.4f} (CPU)")
+    check(bg == bc, f"EM: the card's winner {bg}, the CPU's {bc}")
+    check(torch.allclose(sg.means.cpu(), sc.means, rtol=1e-4, atol=1e-5),
+          f"EM: means differ by {mean_err}")
+    check(hist_ok, "EM: the histories differ past rtol 1e-4, atol 1e-3")
+    for h, it in ((hg, it_g), (hc, it_c)):
+        check(np.all(np.isfinite(h[:it])) and np.all(np.diff(h[:it]) >= -1e-3),
+              "EM: the log-likelihood falls by more than 1e-3")
+    del x, sg, sc
+
+    # train_bank, save, load, scan
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    bank = train_bank(corpus, list(TRAIN_PHONES), tcfg, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = _cuda.launch_counts()
+    for name in ("frontend_planes", "select_binspread"):
+        check(counts.get(name, 0) > 0, f"train_bank did not launch {name}")
+    check(bank.labels == ["aa"] * k_comp + ["iy"] * k_comp
+          and tuple(bank.templates.shape) == (2 * k_comp, target, fcfg.feature_freqs, 8)
+          and bool(torch.isfinite(bank.templates).all()),
+          f"trained bank: {bank.labels}, {tuple(bank.templates.shape)}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/bank.npz"
+        bank.save(path)
+        loaded = TemplateBank.load(path, device=dev)
+    check(loaded.labels == bank.labels and loaded.parts is None
+          and bool(torch.equal(loaded.templates, bank.templates))
+          and bool(torch.equal(loaded.background, bank.background)),
+          "the saved bank does not load back equal")
+    say(f"training: train_bank (K {k_comp} x R {restarts}, {len(TRAIN_PHONES)} classes) "
+        f"{train_s:.3f} s wall -> K {bank.num_templates}, L {bank.template_length}; "
+        f"launches {counts}; saved and loaded back equal")
+    _cuda.reset_launches()
+    res = detect_corpus_stream(scan_corpus, loaded, scan_cfg, target_phone="aa")
+    counts = _cuda.launch_counts()
+    for name in SCAN_KERNELS:
+        check(counts.get(name, 0) > 0, f"the trained bank's scan did not launch {name}")
+    ref = detect_corpus_stream(scan_corpus, loaded, scan_cfg, target_phone="aa", plain=True)
+    say(f"training: the loaded bank's scan ({res.counters['utterances']:.0f} utterances, "
+        f"K {loaded.num_templates}, L {loaded.template_length}): "
+        f"{res.counters['audio_s_per_s']:.1f} audio-s/s, launches {counts}")
+    check_scan_scores(res.detections, ref.detections, flips, loaded.template_length, 4e-3,
+                      "trained-bank scan", say)
+    del res, ref, bank, loaded
+
+    # parts: the dictionary, the codes on the card and on the CPU, the bank
+    pcfg = C.PartsConfig(enabled=True)
+    pooled = _host_maps(stack, lengths)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    parts = mparts.learn_parts(pooled, pcfg.num_parts, pcfg.patch_time, pcfg.patch_freq,
+                               pcfg.num_patches, pcfg.seed, pcfg.em_iters, device=dev)
+    torch.cuda.synchronize()
+    learn_s = time.perf_counter() - t0
+    (codes, code_ms) = time_once(torch, lambda: mparts.code_parts_batch(stack, parts))
+    n_cpu = min(512, n)
+    codes_cpu = mparts.code_parts_batch(stack[:n_cpu].cpu(), parts.cpu())
+    frac = float((codes[:n_cpu].cpu() != codes_cpu).any(dim=-1).float().mean())
+    check(bool((codes.sum(dim=-1) == 1).all()), "codes: not one part a location")
+    check(frac < 1e-3, f"codes: {frac} of locations differ between the card and the CPU")
+    say(f"training: learn_parts ({pcfg.num_parts} parts of {pcfg.patch_time} x "
+        f"{pcfg.patch_freq}, {pcfg.num_patches} patches, {pcfg.em_iters} iterations) "
+        f"{learn_s:.3f} s wall; code_parts_batch of {tuple(stack.shape)} -> "
+        f"{tuple(codes.shape)} in {code_ms:.3f} ms = {n * stack.shape[1] / code_ms * 1e3:.0f} "
+        f"frames/s ({mparts.CODE_CHUNK} maps a conv2d); the first {n_cpu} maps' codes on "
+        f"the CPU: {frac:.3g} of locations differ (limit 1e-3)")
+    del codes, codes_cpu, stack, pooled
+    pk_cfg = C.override(tcfg, parts=pcfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pbank = train_bank(corpus, list(TRAIN_PHONES), pk_cfg, device=dev)
+    torch.cuda.synchronize()
+    ptrain_s = time.perf_counter() - t0
+    f2 = fcfg.feature_freqs - pcfg.patch_freq + 1
+    check(pbank.parts is not None and tuple(pbank.parts.shape) == (pcfg.num_parts,
+          pcfg.patch_time, pcfg.patch_freq, 8)
+          and tuple(pbank.templates.shape[2:]) == (f2, pcfg.num_parts)
+          and bool(torch.isfinite(pbank.templates).all()),
+          f"parts bank: {tuple(pbank.templates.shape)}")
+    say(f"training: train_bank with parts {ptrain_s:.3f} s wall (without: {train_s:.3f} s) "
+        f"-> K {pbank.num_templates}, L {pbank.template_length}, F' {f2}, J "
+        f"{pcfg.num_parts} (D {f2 * pcfg.num_parts} a frame)")
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    res = detect_corpus(scan_corpus, pbank, pk_cfg, target_phone="aa")
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    counts = _cuda.launch_counts()
+    n_scan = res.counters["utterances"]
+    check("batches" not in res.counters, "the parts bank was not routed to the loop")
+    for name in ("frontend_planes", "select_binspread"):
+        check(counts.get(name, 0) == n_scan, f"parts loop: {name} launched {counts}")
+    ref = _detect_corpus_loop(scan_corpus, pbank, pk_cfg, target_phone="aa", plain=True)
+    say(f"training: detect_corpus with the parts bank: the per-utterance loop, "
+        f"{n_scan:.0f} utterances in {loop_s:.3f} s = {res.counters['audio_s_per_s']:.1f} "
+        f"audio-s/s, launches {counts}")
+    # a coded row reads patch_time map rows, a score L coded rows
+    check_scan_scores(res.detections, ref.detections,
+                      loop_flips(torch, fp, scan_corpus, fcfg, dev),
+                      pbank.template_length + pcfg.patch_time - 1, 1e-5, "parts loop", say)
+
+
 def main() -> int:
     import torch
 
@@ -2281,6 +2565,11 @@ def main() -> int:
         f"(tolerance 1e-5)")
     check(diff_d <= 1e-5 * top_d, f"exact DTW loop: {diff_d} > 1e-5 * {top_d}")
     del res, resd
+
+    # ---- config-3 training, then scans with the banks it builds --------
+    t0 = time.perf_counter()
+    training_phase(torch, dev, C, say, corpus, scan_cfg, flips["default"])
+    say(f"training phase: {time.perf_counter() - t0:.1f} s")
 
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

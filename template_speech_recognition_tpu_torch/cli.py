@@ -1,18 +1,25 @@
-"""CLI of the port: the ``detect`` and ``evaluate`` subcommands.
+"""CLI of the port: the ``train``, ``detect`` and ``evaluate`` subcommands.
 
+    python -m template_speech_recognition_tpu_torch train \\
+        --corpus synthetic --phones aa,iy --bank bank.npz [--components N] [--parts N]
     python -m template_speech_recognition_tpu_torch detect \\
         --corpus synthetic --bank bank.npz --phone aa --out dets.npz
     python -m template_speech_recognition_tpu_torch evaluate \\
         --corpus synthetic --bank bank.npz --phone aa --artifacts out/
 
-``--bank`` is the ``.npz`` that ``TemplateBank.save`` writes.  The flags
-and the one JSON line printed match the reference's ``detect`` and
-``evaluate``: ``--dtw-rescore`` (config 4), ``--dtw-top-r``,
-``--int8-spectra``, ``--exact`` (int32 scores), ``--score-backend`` and
-``evaluate``'s ``--artifacts`` (``roc.npz``, ``detections.npz``,
-``metrics.json``).  ``--manifest`` and ``--tensorboard`` are not ported
-yet and raise; the other subcommands are later work (ROADMAP.md Queue 1:
-``bench`` item 1, ``classify`` item 4, ``train`` item 5).
+``--bank`` is the ``.npz`` that ``TemplateBank.save`` writes: ``train``
+writes it and ``detect`` and ``evaluate`` read it.  The reference's CLI
+writes and reads an orbax *directory* there instead, so a bank crosses
+between the two CLIs only as ``.npz`` (either package's
+``TemplateBank.save``).  The flags and the one JSON line printed match
+the reference's ``train``, ``detect`` and ``evaluate``: ``train``'s
+``--phones``, ``--components`` and ``--parts N``; ``--dtw-rescore``
+(config 4), ``--dtw-top-r``, ``--int8-spectra``, ``--exact`` (int32
+scores), ``--score-backend`` and ``evaluate``'s ``--artifacts``
+(``roc.npz``, ``detections.npz``, ``metrics.json``).  ``--manifest`` and
+``--tensorboard`` are not ported yet and raise; the other subcommands
+are later work (ROADMAP.md Queue 1: ``bench`` item 1, ``classify`` item
+4).  Every subcommand runs on the GPU unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -49,13 +56,19 @@ def _load_config(args):
             cfg = C.from_json(f.read())
     else:
         cfg = C.PipelineConfig()
-    if args.dtw_rescore:
+    if getattr(args, "components", None):
+        cfg = C.override(cfg, template=C.override(cfg.template,
+                                                  num_components=args.components))
+    if getattr(args, "parts", 0):
+        cfg = C.override(cfg, parts=C.override(cfg.parts, enabled=True,
+                                               num_parts=args.parts))
+    if getattr(args, "dtw_rescore", False):
         cfg = C.override(cfg, detect=C.override(cfg.detect, dtw_rescore=True))
     if getattr(args, "dtw_top_r", None) is not None:
         cfg = C.override(cfg, dtw=C.override(cfg.dtw, top_r=args.dtw_top_r))
-    if args.exact:
+    if getattr(args, "exact", False):
         cfg = C.override(cfg, detect=C.override(cfg.detect, exact_scores=True))
-    if args.score_backend:
+    if getattr(args, "score_backend", None):
         cfg = C.override(cfg, detect=C.override(cfg.detect,
                                                 score_backend=args.score_backend))
     if getattr(args, "int8_spectra", False):
@@ -77,6 +90,27 @@ def _scan(args):
     corpus = _build_corpus(args.corpus, args.seed)
     bank = TemplateBank.load(args.bank, device=args.device)
     return cfg, detect_corpus(corpus, bank, cfg, target_phone=args.phone)
+
+
+def cmd_train(args) -> int:
+    from template_speech_recognition_tpu_torch.pipeline import train_bank
+
+    cfg = _load_config(args)
+    corpus = _build_corpus(args.corpus, args.seed)
+    phones = args.phones.split(",")
+    bank = train_bank(corpus, phones, cfg, device=args.device)
+    bank.save(args.bank)
+    print(
+        json.dumps(
+            {
+                "trained": phones,
+                "num_templates": bank.num_templates,
+                "template_length": bank.template_length,
+                "bank": args.bank,
+            }
+        )
+    )
+    return 0
 
 
 def _save_detections(path: str, d) -> None:
@@ -143,10 +177,25 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="template_speech_recognition_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
 
-    def common(sp):
+    def base(sp):
         sp.add_argument("--corpus", default="synthetic", help="synthetic")
         sp.add_argument("--config", default=None, help="JSON PipelineConfig")
         sp.add_argument("--seed", type=int, default=0)
+        sp.add_argument("--device", default=None,
+                        help="cuda (default; raises without a GPU) or cpu")
+
+    t = sub.add_parser("train", help="train a template bank (config 3)")
+    base(t)
+    t.add_argument("--phones", required=True, help="comma-separated classes")
+    t.add_argument("--bank", required=True, help="output bank .npz")
+    t.add_argument("--components", type=int, default=None,
+                   help="mixture components per class")
+    t.add_argument("--parts", type=int, default=0,
+                   help="build the bank over N-part coded features")
+    t.set_defaults(fn=cmd_train)
+
+    def common(sp):
+        base(sp)
         sp.add_argument("--bank", required=True, help="bank .npz")
         sp.add_argument("--phone", required=True, help="target phone for labels")
         sp.add_argument("--dtw-rescore", action="store_true",
@@ -158,8 +207,6 @@ def build_parser() -> argparse.ArgumentParser:
                         help="scoring kernel (fft = frequency-domain fast path)")
         sp.add_argument("--manifest", default=None,
                         help="scan-manifest directory (not ported yet)")
-        sp.add_argument("--device", default=None,
-                        help="cuda (default; raises without a GPU) or cpu")
 
     d = sub.add_parser("detect", help="scan a corpus (configs 1-2, 4)")
     common(d)

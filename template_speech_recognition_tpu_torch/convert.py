@@ -26,13 +26,16 @@ def _tensor(a, device, dtype=None) -> torch.Tensor:
     return t.to(device)
 
 
-def bank_from_numpy(templates, background, labels, device=None) -> TemplateBank:
-    """The JAX ``TemplateBank``'s arrays ([K, L, F, E], [F, E], labels)."""
+def bank_from_numpy(templates, background, labels, device=None,
+                    parts=None) -> TemplateBank:
+    """The JAX ``TemplateBank``'s arrays ([K, L, F, E], [F, E], labels
+    and, for a parts-coded bank, the dictionary [J, pt, pf, E])."""
     dev = resolve_device(device)
     return TemplateBank(
         _tensor(templates, dev, torch.float32),
         _tensor(background, dev, torch.float32),
         list(labels),
+        None if parts is None else _tensor(parts, dev, torch.float32),
     )
 
 

@@ -21,8 +21,6 @@ a valid cross-correlation over time with full (F, E) support, i.e. a
 
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -34,21 +32,10 @@ from template_speech_recognition_tpu_torch.detect.fft_scorer import (
 from template_speech_recognition_tpu_torch.ops.correlation_kernel import (
     correlation_scores,
 )
+from template_speech_recognition_tpu_torch.utils.precision import full_fp32 as _full_fp32
 
 # float64 represents every integer below 2**53 exactly
 _EXACT_F64 = 2**53
-
-
-@contextlib.contextmanager
-def _full_fp32():
-    """cuDNN convolutions in full float32: PyTorch lets them use TF32 by
-    default, which keeps about three decimal digits."""
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
 
 
 def _conv_input(feats: torch.Tensor, d: int, compute_dtype) -> torch.Tensor:

@@ -44,9 +44,10 @@ def spectrogram(waveform: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
 
 
 def frontend_batch(waveforms: torch.Tensor, num_valid_samples: torch.Tensor,
-                   cfg: FrontendConfig) -> FeatureMap:
-    """[B, S] + [B] -> FeatureMap [B, T', F', 8] (T' = frames - 1)."""
-    fm = frontend_batch_flat(waveforms, num_valid_samples, cfg)
+                   cfg: FrontendConfig, plain: bool = False) -> FeatureMap:
+    """[B, S] + [B] -> FeatureMap [B, T', F', 8] (T' = frames - 1).
+    ``plain=True`` runs the kernels' plain versions."""
+    fm = frontend_batch_flat(waveforms, num_valid_samples, cfg, plain=plain)
     t_out = cfg.num_feature_frames(waveforms.shape[-1])
     binary = flat_to_channels(fm.binary[:, :t_out], cfg.feature_freqs)
     return FeatureMap(binary, fm.valid_frames)

@@ -87,14 +87,36 @@ def _well_conditioned(frames, cfg, n_mels, floor=1e-2):
     return ok[:-1, :f] & ok[:-1, 1 : f + 1] & ok[1:, :f] & ok[1:, 1 : f + 1]
 
 
+def _one_planes_call(monkeypatch):
+    """Make ``edge_response_planes`` compute once and hand that output to
+    every later call on equal inputs: a CPU fp32 GEMM does not promise
+    the same bits on two calls, so claims that one function's output is
+    a view of another's are held on one call's output."""
+    real = k1.edge_response_planes
+    memo = []
+
+    def once(frames, *args, **kwargs):
+        key = (args, sorted(kwargs.items()))
+        for f, k, out in memo:
+            if k == key and torch.equal(f, frames):
+                return out
+        memo.append((frames.clone(), key, real(frames, *args, **kwargs)))
+        return memo[-1][2]
+
+    monkeypatch.setattr(k1, "edge_response_planes", once)
+    return memo
+
+
 @pytest.mark.parametrize("nfft,n_mels", [(256, 0), (512, 40), (512, 64)])
-def test_four_planes_match_reference(nfft, n_mels):
+def test_four_planes_match_reference(nfft, n_mels, monkeypatch):
     """Kernel 1's plain version, log-magnitude and log-mel, against the
     reference's four-output kernel in interpret mode; the four outputs
-    and the channels-minor view are exactly the stacked output."""
+    and the channels-minor view are exactly the stacked output (all
+    three functions read one call's planes)."""
     cfg = FrontendConfig(nfft=nfft, use_mel=n_mels > 0, n_mels=n_mels or 64)
     frames = _frames(cfg)
     ft = torch.from_numpy(frames)
+    memo = _one_planes_call(monkeypatch)
     stacked = k1.edge_response_planes(ft, nfft, cfg.sample_rate, n_mels)
     four = k1.edge_response_planes_4(ft, nfft, cfg.sample_rate, n_mels)
     want = np.stack([np.asarray(p) for p in edge_response_planes_pallas(
@@ -106,6 +128,7 @@ def test_four_planes_match_reference(nfft, n_mels):
     for i in range(4):
         assert torch.equal(four[i], stacked[i])
     resp = k1.edge_responses(ft, nfft, cfg.sample_rate, n_mels)
+    assert len(memo) == 1
     assert torch.equal(resp[..., 0::2], stacked.permute(1, 2, 0))
     assert torch.equal(resp[..., 1::2], -stacked.permute(1, 2, 0))
     got, want = stacked.numpy()[:, :-1], want[:, :-1]    # last row: garbage
@@ -233,15 +256,17 @@ def test_path_rule_reads_shapes():
 
 @pytest.mark.parametrize("cfg", [FrontendConfig(), FrontendConfig(use_mel=True, n_mels=129)],
                          ids=["default", "mel129"])
-def test_layered_equals_fused(cfg):
+def test_layered_equals_fused(cfg, monkeypatch):
     """The two paths give the same map, bit for bit (the reference's
-    claim at planes.py:298-300)."""
+    claim at planes.py:298-300), from one call's planes."""
+    memo = _one_planes_call(monkeypatch)
     x, lens = _padded(3, seed=5)
     lens[2] = 300                      # shorter than a frame: no valid row
     args = (torch.from_numpy(x), torch.from_numpy(lens), cfg)
     layered = tplanes.frontend_batch_flat(*args, layered=True)
     fused = tplanes.frontend_batch_flat(*args, layered=False)
     assert layered.binary.any()
+    assert len(memo) == 1
     assert torch.equal(layered.binary, fused.binary)
     assert torch.equal(layered.valid_frames, fused.valid_frames)
 

@@ -106,6 +106,20 @@ def test_no_pair_gives_an_empty_tile_stack():
         assert tuple(fn(*args).shape) == (0, length, m)
 
 
-def test_wrapper_takes_plain_on_cpu():
+def test_wrapper_takes_plain_on_cpu(monkeypatch):
+    """The wrapper on CPU tensors returns its plain version's output on
+    the same arguments (held on one call: a CPU fp32 GEMM does not
+    promise the same bits on two calls)."""
     args = _problem("d504", seed=3)
-    assert torch.equal(kp.pair_llr(*args), kp.pair_llr_plain(*args))
+    calls = []
+    real = kp.pair_llr_plain
+
+    def plain(*a):
+        calls.append(a)
+        calls.append(real(*a))
+        return calls[-1]
+
+    monkeypatch.setattr(kp, "pair_llr_plain", plain)
+    got = kp.pair_llr(*args)
+    assert len(calls) == 2 and all(x is y for x, y in zip(calls[0], args))
+    assert torch.equal(got, calls[1])
