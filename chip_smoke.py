@@ -110,7 +110,13 @@
    with the same template, scores within their class): first the
    default scan (bf16 spectra), then the scan with DTW rescoring
    (config 4, verify-the-winner) on int8 template spectra (config 5),
-   whose traced device time a batch is printed.
+   whose traced device time a batch is printed.  The default scan is
+   also run with a manifest (``checkpoint.ScanManifest``): recorded
+   whole, reloaded whole with no step, and failed in ``compute`` after 2
+   of its 3 batches, then resumed (one step, each scan kernel launched
+   once), each bitwise the clean scan; and with the PCM16 upload
+   (``SCAN_UPLOAD_INT16=1``) on the corpus snapped to the PCM16 grid,
+   bitwise the float upload, the uploads' traced ms a batch of both.
    A map cell that ties its threshold may flip between two fp32
    evaluations of the planes and moves every score whose window holds
    it by a whole LLR term: such matches, at most ``MAX_EXEMPT`` of
@@ -150,9 +156,19 @@
    bank (``PartsConfig(enabled=True)``): the codes of the card and the
    CPU on one dictionary (< 1e-3 of locations apart), and
    ``detect_corpus`` routed to the per-utterance loop, against the plain
-   loop.  It prints the exemplar-map rate, EM's ms an iteration beside
-   its bytes bound, ``learn_parts``' wall, the coding rate and
-   ``train_bank``'s wall with and without parts.
+   loop; ``run_em_checkpointed`` (one fit, tol 0, chunks of 5) killed
+   after its first chunk and resumed, bitwise the unbroken run and
+   ``bernoulli_mixture_em`` on the card, and within the EM classes above
+   of the CPU's; ``classify_segments`` with the trained bank over the
+   corpus's labelled aa / iy spans, sliding against the CPU and DTW
+   against its plain version (identical predictions, scores within
+   1e-5 x max|score|), the DTW kernel held bitwise and timed at
+   classification's shape (its own ``shape`` row in the kernels line),
+   and the CLI's ``classify`` on the card, both routes.  It prints the
+   exemplar-map rate, EM's ms an iteration beside its bytes bound,
+   ``learn_parts``' wall, the coding rate, ``train_bank``'s wall with
+   and without parts, checkpointed EM's ms and classification's
+   segments a second on each route.
 
 The default, the DTW + int8 and the two log-mel scans are each run once
 more under ``torch.profiler``: the union of the device intervals in
@@ -1394,6 +1410,153 @@ def mel_kernel_checks(torch, M, dev, wavs, nvalid, valid, frames2, bank_mel, rec
         f"{ms_p:.4f} ms (loops of 100)")
 
 
+# ---- resumable scans: the manifest and the PCM16 upload --------------------
+
+def same_detections(a, b) -> bool:
+    """Two detection sets bitwise equal."""
+    return all(np.array_equal(getattr(a, n), getattr(b, n))
+               for n in ("scores", "times", "template_ids", "utterance_ids"))
+
+
+def upload_ms(torch, run):
+    """The device time of the host-to-device copies of one traced
+    ``run`` in ms, or None when the trace holds no device event."""
+    total, names, _n = device_ms_traced(torch, run)
+    if total is None:
+        return None
+    return sum(ms for n, ms in names.items() if "HtoD" in n)
+
+
+def resume_phase(torch, say, corpus, bank, scan_cfg, clean, clean_ctr, _cuda):
+    """The default scan with a manifest: recorded whole, then failed in
+    ``compute`` after 2 of its 3 batches and resumed, and a complete
+    manifest reloaded; each bitwise equal to the clean scan ``clean``."""
+    import tempfile
+
+    from template_speech_recognition_tpu_torch import scan as scan_mod
+    from template_speech_recognition_tpu_torch.checkpoint import ScanManifest
+
+    real_step = scan_mod.scan_step
+    calls = {"n": 0, "fail_after": None}
+
+    def step(*a, **k):
+        calls["n"] += 1
+        if calls["fail_after"] is not None and calls["n"] > calls["fail_after"]:
+            raise RuntimeError("injected fault")
+        return real_step(*a, **k)
+
+    def scan(manifest, fail_after=None):
+        calls.update(n=0, fail_after=fail_after)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = scan_mod.detect_corpus_stream(corpus, bank, scan_cfg, target_phone="aa",
+                                            manifest=manifest)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    scan_mod.scan_step = step
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            whole, wall_rec = scan(ScanManifest(f"{tmp}/whole"))
+            check(same_detections(whole.detections, clean),
+                  "manifest: the recorded scan differs from the clean scan")
+            check(ScanManifest(f"{tmp}/whole").completed() == {0, 1, 2},
+                  "manifest: the recorded scan did not record shards 0-2")
+            again, wall_load = scan(ScanManifest(f"{tmp}/whole"))
+            check(calls["n"] == 0 and same_detections(again.detections, clean),
+                  f"manifest: the complete manifest ran {calls['n']} steps or differs")
+            mdir = f"{tmp}/fault"
+            try:
+                scan(ScanManifest(mdir), fail_after=2)
+                check(False, "manifest: the injected fault did not fire")
+            except RuntimeError as exc:
+                check("injected fault" in str(exc), f"manifest: {exc}")
+            done = ScanManifest(mdir).completed()
+            check(done == {0, 1}, f"manifest: the failed scan recorded {sorted(done)}")
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+            resumed, wall_res = scan(ScanManifest(mdir))
+            counts = _cuda.launch_counts()
+    finally:
+        scan_mod.scan_step = real_step
+    check(calls["n"] == 1, f"manifest: the resumed scan ran {calls['n']} steps for 1 shard")
+    for name in SCAN_KERNELS:
+        check(counts.get(name, 0) == 1, f"resumed scan: {name} launched {counts.get(name, 0)}x")
+    check(same_detections(resumed.detections, clean),
+          "manifest: the resumed scan is not bitwise the clean scan")
+    def loop(r):
+        return f"{r.counters['time_scan_s']:.4f} s loop"
+
+    say(f"manifest: the default scan ({clean_ctr['batches']:.0f} batches) recording its shards: "
+        f"{loop(whole)} ({whole.counters['audio_s_per_s']:.1f} audio-s/s; {wall_rec:.4f} s "
+        f"with the bank build), without a manifest {clean_ctr['time_scan_s']:.4f} s loop "
+        f"({clean_ctr['audio_s_per_s']:.1f} audio-s/s); the complete manifest reloaded: "
+        f"{loop(again)} ({wall_load:.4f} s), no step; failed in compute after 2 batches, "
+        f"shards 0 and 1 recorded, resumed: {loop(resumed)} ({wall_res:.4f} s), 1 step "
+        f"(launches {counts}); all three bitwise the clean scan's {len(clean.scores)} "
+        f"detections")
+
+
+def pcm16_phase(torch, say, corpus, bank, scan_cfg, _cuda):
+    """``SCAN_UPLOAD_INT16=1`` on the smoke corpus snapped to the PCM16
+    grid: bitwise the float upload of the same corpus; the uploads' ms
+    a batch from a trace, and audio-s/s, of both."""
+    import os
+
+    from template_speech_recognition_tpu_torch.scan import _pcm16, detect_corpus_stream
+
+    pcm = object.__new__(Corpus)
+    pcm.sample_rate = corpus.sample_rate
+    pcm.utts = [(u, _pcm16(w).astype(np.float32) / 32768.0, p) for u, w, p in corpus.utts]
+
+    def run(int16):
+        prev = os.environ.pop("SCAN_UPLOAD_INT16", None)
+        if int16:
+            os.environ["SCAN_UPLOAD_INT16"] = "1"
+        try:
+            return detect_corpus_stream(pcm, bank, scan_cfg, target_phone="aa")
+        finally:
+            os.environ.pop("SCAN_UPLOAD_INT16", None)
+            if prev is not None:
+                os.environ["SCAN_UPLOAD_INT16"] = prev
+
+    from template_speech_recognition_tpu_torch import scan as scan_mod
+
+    run(True)                                                         # warm-up
+    real_fe = scan_mod.frontend_batch_flat
+    seen = []
+    scan_mod.frontend_batch_flat = lambda w, *a, **k: seen.append(w.clone()) or real_fe(w, *a, **k)
+    try:
+        f32 = run(False)
+        floats, seen[:] = list(seen), []
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        i16 = run(True)
+        torch.cuda.synchronize()
+        counts = _cuda.launch_counts()
+    finally:
+        scan_mod.frontend_batch_flat = real_fe
+    check(len(seen) == len(floats) == 3 and all(
+        a.dtype == torch.float32 and bool(torch.equal(a, b)) for a, b in zip(seen, floats)),
+        "PCM16 upload: the frontend's waveforms are not bitwise the float upload's")
+    for name in SCAN_KERNELS:
+        check(counts.get(name, 0) == 3, f"PCM16 scan: {name} launched {counts.get(name, 0)}x")
+    check(len(i16.detections.scores) > 0 and same_detections(i16.detections, f32.detections),
+          "PCM16 upload: the detections are not bitwise the float upload's")
+    nb = i16.counters["batches"]
+    up = {k: upload_ms(torch, lambda: run(k)) for k in (False, True)}
+    rates = [run(k).counters["audio_s_per_s"] for k in (False, True, True, False)]
+    text = ", ".join(
+        "not measured (no device event traced)" if v is None else
+        f"{lbl} {v / nb:.4f} ms a batch"
+        for lbl, v in (("float", up[False]), ("int16", up[True])))
+    say(f"PCM16 upload: {nb:.0f} batches bitwise the float upload's (the frontend's "
+        f"waveforms and {len(f32.detections.scores)} detections; launches {counts}); uploads (host to device, traced): {text}; "
+        f"audio-s/s float {f32.counters['audio_s_per_s']:.1f}, int16 "
+        f"{i16.counters['audio_s_per_s']:.1f}, then float, int16, int16, float: "
+        + ", ".join(f"{r:.1f}" for r in rates) + " (three batches: no stable throughput)")
+
+
 # ---- config-3 training (the soak corpus of soak.py) ----------------------
 
 SOAK_UTTS = 75                     # utterances a group (soak.py); the cut, if any
@@ -1432,7 +1595,180 @@ def loop_flips(torch, fp, corpus, fcfg, dev):
     return out
 
 
-def training_phase(torch, dev, C, say, scan_corpus, scan_cfg, flips):
+def same_state(a, b) -> bool:
+    """Two EM states bitwise equal, field by field (NaN equal to NaN)."""
+    return all(np.array_equal(x.cpu().numpy(), y.cpu().numpy(), equal_nan=True)
+               for x, y in zip(a, b))
+
+
+def em_checkpoint_phase(torch, say, dev, x, init_resp, iters):
+    """``run_em_checkpointed`` on the card at the training phase's shape,
+    tol 0, chunks of 5: killed after its first chunk and called again,
+    bitwise the unbroken run (and ``bernoulli_mixture_em``); the unbroken
+    run against the CPU's in the training phase's EM classes."""
+    import tempfile
+
+    from template_speech_recognition_tpu_torch import checkpoint as ck
+    from template_speech_recognition_tpu_torch.models.mixture import bernoulli_mixture_em
+
+    chunk = 5
+    kw = dict(num_iters=iters, chunk_iters=chunk, tol=0.0)
+    real = ck.resume_fit
+    chunks = {"n": 0}
+
+    def dies_after_one(*a, **k):
+        chunks["n"] += 1
+        if chunks["n"] > 1:
+            raise RuntimeError("killed")
+        return real(*a, **k)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        (whole, ms_whole) = time_once(
+            torch, lambda: ck.run_em_checkpointed(x, init_resp, f"{tmp}/whole", **kw))
+        ck.resume_fit = dies_after_one
+        try:
+            ck.run_em_checkpointed(x, init_resp, f"{tmp}/crash", **kw)
+            check(False, "checkpointed EM: the kill did not fire")
+        except RuntimeError as exc:
+            check("killed" in str(exc), f"checkpointed EM: {exc}")
+        finally:
+            ck.resume_fit = real
+        saved = int(ck.restore_em_state(f"{tmp}/crash", dev).iteration)
+        check(saved == chunk, f"checkpointed EM: {saved} iterations saved, not {chunk}")
+        (resumed, ms_res) = time_once(
+            torch, lambda: ck.run_em_checkpointed(x, init_resp, f"{tmp}/crash", **kw))
+        (direct, ms_direct) = time_once(
+            torch, lambda: bernoulli_mixture_em(x, init_resp, num_iters=iters, tol=0.0))
+        t0 = time.perf_counter()
+        cpu = ck.run_em_checkpointed(x.cpu(), init_resp, f"{tmp}/cpu", **kw)
+        cpu_s = time.perf_counter() - t0
+    check(same_state(resumed, whole), "checkpointed EM: the resumed run is not bitwise "
+                                      "the unbroken one")
+    check(same_state(whole, direct), "checkpointed EM: not bitwise bernoulli_mixture_em")
+    it_g, it_c = int(whole.iteration), int(cpu.iteration)
+    common = min(it_g, it_c)
+    hg, hc = whole.history.cpu().numpy(), cpu.history.numpy()
+    err = float((whole.means.cpu() - cpu.means).abs().max())
+    check(torch.allclose(whole.means.cpu(), cpu.means, rtol=1e-4, atol=1e-5),
+          f"checkpointed EM: means differ from the CPU's by {err}")
+    check(np.allclose(hg[:common], hc[:common], rtol=1e-4, atol=1e-3),
+          "checkpointed EM: the histories differ from the CPU's past rtol 1e-4, atol 1e-3")
+    for h, it in ((hg, it_g), (hc, it_c)):
+        check(np.all(np.isfinite(h[:it])) and np.all(np.diff(h[:it]) >= -1e-3),
+              "checkpointed EM: the log-likelihood falls by more than 1e-3")
+    say(f"checkpointed EM at x [{x.shape[0]}, {x.shape[1]}], K {init_resp.shape[1]}, tol 0, "
+        f"chunks of {chunk}: unbroken {it_g} iterations in {ms_whole:.3f} ms "
+        f"({ms_whole / it_g:.4f} ms an iteration with a save a chunk; "
+        f"bernoulli_mixture_em {ms_direct:.3f} ms); killed after one chunk ({saved} "
+        f"iterations saved), resumed in {ms_res:.3f} ms: bitwise the unbroken run and "
+        f"bernoulli_mixture_em; CPU {it_c} iterations in {cpu_s:.2f} s, means max diff "
+        f"{err:.3g}, histories within rtol 1e-4 / atol 1e-3 over {common}")
+
+
+def classify_phase(torch, say, dev, corpus, bank, tcfg, record, rows, _cuda):
+    """``classify_segments`` on the card with the trained bank over the
+    soak corpus's labelled aa / iy spans (at least frame_length + 3 hops,
+    the CLI's rule; maps from ``pipeline._clip_maps_kept``): sliding
+    against the CPU, DTW against its plain version on the card;
+    predictions identical, scores within 1e-5 x max|score|.  The DTW
+    kernel's row at classification's shape; the CLI's ``classify`` on
+    the card, both routes."""
+    import contextlib
+    import io
+    import tempfile
+
+    from template_speech_recognition_tpu_torch.cli import main as cli_main
+    from template_speech_recognition_tpu_torch.detect import classify as cls
+    from template_speech_recognition_tpu_torch.models.bank import TemplateBank
+    from template_speech_recognition_tpu_torch.ops import dtw_kernel as kd
+    from template_speech_recognition_tpu_torch.pipeline import _clip_maps_kept
+
+    fcfg = tcfg.frontend
+    band = tcfg.dtw.band
+    classes = sorted(set(bank.labels))
+    min_samples = fcfg.frame_length + 3 * fcfg.hop_length
+    clips = [(ph, wav[s0:e0]) for _u, wav, phones in corpus.iter_utterances()
+             for ph, s0, e0 in phones if ph in classes and e0 - s0 >= min_samples]
+    stack, lengths, kept = _clip_maps_kept([c for _p, c in clips], tcfg, dev)
+    truth = [clips[i][0] for i in kept]
+    m_pad = int(lengths.max())
+    segs = stack[:, :m_pad]
+    n = segs.shape[0]
+    k, lb = bank.num_templates, bank.template_length
+    bank_cpu = TemplateBank(bank.templates.cpu(), bank.background.cpu(), list(bank.labels))
+    for use_dtw in (False, True):                                      # warm-up
+        cls.classify_segments(segs[:8], lengths[:8], bank, use_dtw=use_dtw, band=band)
+    lines = []
+    for use_dtw in (False, True):
+        route = "DTW" if use_dtw else "sliding"
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        preds, scores = cls.classify_segments(segs, lengths, bank, use_dtw=use_dtw, band=band)
+        wall = time.perf_counter() - t0
+        counts = _cuda.launch_counts()
+        if use_dtw:
+            check(counts.get("banded_dtw", 0) >= 1, f"classify DTW: launches {counts}")
+            dtw_counts = counts
+            ref_p, ref_s = cls.classify_segments(segs, lengths, bank, use_dtw=True, band=band,
+                                                 plain=True)
+        else:
+            check(not counts, f"the sliding route launched {counts}")
+            ref_p, ref_s = cls.classify_segments(segs.cpu(), lengths, bank_cpu, band=band)
+        fin = np.isfinite(ref_s)
+        check(np.array_equal(np.isfinite(scores), fin) and np.array_equal(scores[~fin],
+                                                                          ref_s[~fin]),
+              f"classify {route}: the -inf scores differ")
+        top = float(np.abs(ref_s[fin]).max())
+        err = float(np.abs(scores[fin] - ref_s[fin]).max())
+        n_diff = sum(a != b for a, b in zip(preds, ref_p))
+        check(n_diff == 0, f"classify {route}: {n_diff} predictions differ")
+        check(err <= 1e-5 * top, f"classify {route}: scores differ by {err} > 1e-5 * {top}")
+        acc = float(np.mean([p == t for p, t in zip(preds, truth)]))
+        lines.append(f"{route} {n / wall:.1f} segments/s ({wall:.4f} s), accuracy {acc:.4f}, "
+                     f"max diff {err:.3g} of max|score| {top:.6g} against the "
+                     f"{'plain version' if use_dtw else 'CPU'}, launches {counts}")
+    say(f"classify: {n} segments of {'/'.join(classes)} (M_pad {m_pad}, K {k}, L {lb}, band "
+        f"{band}): " + "; ".join(lines) + "; predictions identical")
+
+    # the DTW kernel at classification's shape: the GEMM's output read
+    # through its strides, every segment against every template
+    w_rows, c_rows = bank.llr_rows()
+    with torch.no_grad():
+        llr = (segs.reshape(n * m_pad, -1).to(torch.float32)
+               @ w_rows.reshape(k * lb, -1).T).reshape(n, m_pad, k, lb).permute(0, 2, 3, 1)
+    lens = torch.from_numpy(lengths).to(dev, torch.int32)
+    args = (llr, lens, c_rows.to(torch.float32).contiguous(), band)
+    sc = kd.banded_dtw_scores(*args)
+    n_unreach = check_scores(torch, sc, kd.banded_dtw_scores_plain(*args), "banded_dtw (classify)")
+    check(bool(torch.equal(sc, kd.banded_dtw_scores(*args))),
+          "banded_dtw (classify): two launches differ")
+    check(not kd.whole_tile(llr, band), "classify's DTW tiles took the whole-tile mode")
+    cells = band_cells(torch, lb, m_pad, lens.repeat_interleave(k), band)
+    shape = f"classify: {n} segments x {k} templates, L {lb}, M {m_pad}, band {band}"
+    record(kd, 0.0, "bitwise on finite scores, -inf alike",
+           time_ms(torch, lambda: kd.banded_dtw_scores(*args), loop=100),
+           time_ms(torch, lambda: kd.banded_dtw_scores_plain(*args)), None,
+           cells * 4 + k * lb * 4 + n * 4 + n * k * 4, 5 * cells, FP32_FLOPS, shape=shape)
+    take_launches(rows, ("banded_dtw",), dtw_counts, shape=shape)
+    say(f"banded_dtw ({shape}): {n * k} pairs, {cells} in-band cells, {n_unreach} "
+        f"unreachable; the ring path (strided tiles)")
+
+    # the CLI's classify on the card (its 6-utterance synthetic corpus)
+    with tempfile.TemporaryDirectory() as tmp:
+        bank.save(f"{tmp}/bank.npz")
+        for flags in ([], ["--dtw"]):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                check(cli_main(["classify", "--bank", f"{tmp}/bank.npz", *flags]) == 0,
+                      f"the CLI's classify {flags} failed")
+            line = json.loads(buf.getvalue().strip().splitlines()[-1])
+            check(line["num_segments"] > 0 and line["classes"] == classes,
+                  f"the CLI's classify: {line}")
+            say(f"CLI classify {' '.join(flags) or '(sliding)'} on the card: {json.dumps(line)}")
+
+
+def training_phase(torch, dev, C, say, scan_corpus, scan_cfg, flips, record, rows):
     """Config 3 on the card at the soak shape (F 256, E 8, K 4, R 4), each
     check against the plain versions or the CPU; the numbers printed
     beside the card's name and power limit.  Returns nothing; a failed
@@ -1563,6 +1899,7 @@ def training_phase(torch, dev, C, say, scan_corpus, scan_cfg, flips):
     for h, it in ((hg, it_g), (hc, it_c)):
         check(np.all(np.isfinite(h[:it])) and np.all(np.diff(h[:it]) >= -1e-3),
               "EM: the log-likelihood falls by more than 1e-3")
+    em_checkpoint_phase(torch, say, dev, x, resps[0], iters)
     del x, sg, sc
 
     # train_bank, save, load, scan
@@ -1601,7 +1938,9 @@ def training_phase(torch, dev, C, say, scan_corpus, scan_cfg, flips):
         f"{res.counters['audio_s_per_s']:.1f} audio-s/s, launches {counts}")
     check_scan_scores(res.detections, ref.detections, flips, loaded.template_length, 4e-3,
                       "trained-bank scan", say)
-    del res, ref, bank, loaded
+    del res, ref
+    classify_phase(torch, say, dev, corpus, loaded, tcfg, record, rows, _cuda)
+    del bank, loaded
 
     # parts: the dictionary, the codes on the card and on the CPU, the bank
     pcfg = C.PartsConfig(enabled=True)
@@ -2234,6 +2573,10 @@ def main() -> int:
     fft_dets = dk
     del res, ref
 
+    # ---- the default scan resumed from a manifest; the PCM16 upload ----
+    resume_phase(torch, say, corpus, bank, scan_cfg, fft_dets, ctr, _cuda)
+    pcm16_phase(torch, say, corpus, bank, scan_cfg, _cuda)
+
     # ---- the DTW + int8 scan at full width (configs 4 and 5) -----------
     dtw_cfg = C.PipelineConfig(detect=C.DetectConfig(
         batch_size=B, dtw_rescore=True, int8_spectra=True))
@@ -2568,7 +2911,7 @@ def main() -> int:
 
     # ---- config-3 training, then scans with the banks it builds --------
     t0 = time.perf_counter()
-    training_phase(torch, dev, C, say, corpus, scan_cfg, flips["default"])
+    training_phase(torch, dev, C, say, corpus, scan_cfg, flips["default"], record, rows)
     say(f"training phase: {time.perf_counter() - t0:.1f} s")
 
     say(f"total {time.perf_counter() - t_start:.1f} s")

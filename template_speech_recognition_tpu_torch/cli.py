@@ -1,4 +1,5 @@
-"""CLI of the port: the ``train``, ``detect`` and ``evaluate`` subcommands.
+"""CLI of the port: the ``train``, ``detect``, ``evaluate`` and ``classify``
+subcommands.
 
     python -m template_speech_recognition_tpu_torch train \\
         --corpus synthetic --phones aa,iy --bank bank.npz [--components N] [--parts N]
@@ -6,20 +7,24 @@
         --corpus synthetic --bank bank.npz --phone aa --out dets.npz
     python -m template_speech_recognition_tpu_torch evaluate \\
         --corpus synthetic --bank bank.npz --phone aa --artifacts out/
+    python -m template_speech_recognition_tpu_torch classify \\
+        --corpus synthetic --bank bank.npz [--dtw]
 
 ``--bank`` is the ``.npz`` that ``TemplateBank.save`` writes: ``train``
 writes it and ``detect`` and ``evaluate`` read it.  The reference's CLI
 writes and reads an orbax *directory* there instead, so a bank crosses
 between the two CLIs only as ``.npz`` (either package's
 ``TemplateBank.save``).  The flags and the one JSON line printed match
-the reference's ``train``, ``detect`` and ``evaluate``: ``train``'s
-``--phones``, ``--components`` and ``--parts N``; ``--dtw-rescore``
-(config 4), ``--dtw-top-r``, ``--int8-spectra``, ``--exact`` (int32
-scores), ``--score-backend`` and ``evaluate``'s ``--artifacts``
-(``roc.npz``, ``detections.npz``, ``metrics.json``).  ``--manifest`` and
-``--tensorboard`` are not ported yet and raise; the other subcommands
-are later work (ROADMAP.md Queue 1: ``bench`` item 1, ``classify`` item
-4).  Every subcommand runs on the GPU unless ``--device cpu`` is given.
+the reference's ``train``, ``detect``, ``evaluate`` and ``classify``:
+``train``'s ``--phones``, ``--components`` and ``--parts N``;
+``--dtw-rescore`` (config 4), ``--dtw-top-r``, ``--int8-spectra``,
+``--exact`` (int32 scores), ``--score-backend``, ``--manifest DIR`` (a
+``checkpoint.ScanManifest``: the stream records its shards there and a
+rerun resumes from them), ``evaluate``'s ``--artifacts`` (``roc.npz``,
+``detections.npz``, ``metrics.json``) and ``classify``'s ``--dtw``.
+``--tensorboard`` is not ported yet and raises; ``bench`` comes with the
+benchmark (ROADMAP.md Queue 1, item 1).  Every subcommand runs on the
+GPU unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -79,17 +84,15 @@ def _load_config(args):
 def _scan(args):
     """The corpus scan both subcommands run -> (config, result)."""
     from template_speech_recognition_tpu_torch.models.bank import TemplateBank
+    from template_speech_recognition_tpu_torch.checkpoint import ScanManifest
     from template_speech_recognition_tpu_torch.pipeline import detect_corpus
 
-    if args.manifest:
-        raise NotImplementedError(
-            "--manifest: scan resume is not ported yet (ROADMAP.md Queue 1, "
-            "item 2, 'Manifest resume')"
-        )
     cfg = _load_config(args)
     corpus = _build_corpus(args.corpus, args.seed)
     bank = TemplateBank.load(args.bank, device=args.device)
-    return cfg, detect_corpus(corpus, bank, cfg, target_phone=args.phone)
+    manifest = ScanManifest(args.manifest) if args.manifest else None
+    return cfg, detect_corpus(corpus, bank, cfg, target_phone=args.phone,
+                              manifest=manifest)
 
 
 def cmd_train(args) -> int:
@@ -173,6 +176,43 @@ def cmd_evaluate(args) -> int:
     return 0
 
 
+def cmd_classify(args) -> int:
+    """Isolated-segment classification over the corpus's labelled spans
+    of the bank's classes, at least ``frame_length + 3 * hop_length``
+    samples long, as in the reference.  The maps come from the batched
+    frontend (``pipeline._clip_feature_maps``: 128 clips a call); with a
+    parts-coded bank a segment whose coded length
+    ``(valid - patch_time) // stride_time + 1`` is below 1 is skipped."""
+    from template_speech_recognition_tpu_torch.detect.classify import classify_segments
+    from template_speech_recognition_tpu_torch.models.bank import TemplateBank
+    from template_speech_recognition_tpu_torch.pipeline import _clip_maps_kept, _code_map_list
+
+    cfg = _load_config(args)
+    corpus = _build_corpus(args.corpus, args.seed)
+    bank = TemplateBank.load(args.bank, device=args.device)
+    classes = sorted(set(bank.labels))
+    min_samples = cfg.frontend.frame_length + 3 * cfg.frontend.hop_length
+    clips = [(phone, wav[s0:e0]) for _u, wav, phones in corpus.iter_utterances()
+             for phone, s0, e0 in phones if phone in classes and e0 - s0 >= min_samples]
+    if not clips:
+        raise SystemExit("no scoreable segments found")
+    stack, lengths, kept = _clip_maps_kept([c for _p, c in clips], cfg, bank.device)
+    truth = [clips[i][0] for i in kept]
+    if bank.parts is not None:
+        pcfg = cfg.parts
+        ok = np.flatnonzero((lengths - pcfg.patch_time) // pcfg.stride_time + 1 >= 1)
+        if not len(ok):
+            raise SystemExit("no scoreable segments found")
+        stack, lengths = _code_map_list(stack[ok], lengths[ok], bank.parts, pcfg)
+        truth = [truth[i] for i in ok]
+    preds, _ = classify_segments(stack[:, : int(lengths.max())], lengths, bank,
+                                 use_dtw=args.dtw, band=cfg.dtw.band)
+    acc = float(np.mean([p == t for p, t in zip(preds, truth)]))
+    print(json.dumps({"num_segments": len(truth), "accuracy": round(acc, 4),
+                      "classes": classes, "dtw": bool(args.dtw)}))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="template_speech_recognition_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
@@ -206,7 +246,8 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=["conv", "fft", "pallas"],
                         help="scoring kernel (fft = frequency-domain fast path)")
         sp.add_argument("--manifest", default=None,
-                        help="scan-manifest directory (not ported yet)")
+                        help="scan-manifest directory: crash-tolerant "
+                             "resumable corpus scan")
 
     d = sub.add_parser("detect", help="scan a corpus (configs 1-2, 4)")
     common(d)
@@ -227,6 +268,13 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--tensorboard", default=None,
                    help="directory for tensorboard scalars (not ported yet)")
     e.set_defaults(fn=cmd_evaluate)
+
+    c = sub.add_parser("classify", help="isolated-segment classification")
+    base(c)
+    c.add_argument("--bank", required=True, help="bank .npz")
+    c.add_argument("--phone", default=None, help="unused; kept for symmetry")
+    c.add_argument("--dtw", action="store_true", help="DTW-aligned scoring")
+    c.set_defaults(fn=cmd_classify)
     return p
 
 

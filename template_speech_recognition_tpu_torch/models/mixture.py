@@ -15,7 +15,9 @@ two GEMMs an iteration (E-step ``x [N, D] @ logit.T [D, R*K]``, M-step
 ``resp [N, R*K].T @ x``), so ``x`` is read once a GEMM, not 2R times.
 A restart that has met ``tol`` freezes while the others go on.  The
 GEMMs run in full float32 (TF32 off, ``utils.precision.full_fp32``), as
-the reference runs them at ``Precision.HIGHEST``.
+the reference runs them at ``Precision.HIGHEST``.  ``resume_fit`` runs
+the same loop from a given state for a bounded number of iterations
+(``checkpoint.run_em_checkpointed``'s chunks).
 """
 
 from __future__ import annotations
@@ -74,23 +76,45 @@ def em_step(x, resp, mask, eps: float):
     return new_resp[:, 0], means[0], weights[0], mean_ll[0]
 
 
-def _fit(x, init_resps, num_iters, eps, tol, mask):
-    """R fits in lockstep -> EMState with a leading R axis."""
+def _start(init_resps, d: int, num_iters: int, device) -> EMState:
+    """The state before iteration 1 of R fits, with a leading R axis."""
+    init = torch.as_tensor(init_resps, dtype=torch.float32, device=device)
+    r, _n, k = init.shape
+    return EMState(
+        iteration=torch.zeros(r, dtype=torch.int32, device=device),
+        responsibilities=init,
+        means=torch.zeros((r, k, d), device=device),
+        weights=torch.full((r, k), 1.0 / k, device=device),
+        log_likelihood=torch.full((r,), float("-inf"), device=device),
+        done=torch.zeros(r, dtype=torch.bool, device=device),
+        history=torch.full((r, num_iters), float("nan"), device=device),
+    )
+
+
+def resume_fit(x, state: EMState, num_iters, eps, tol, mask, max_steps=None) -> EMState:
+    """R fits in lockstep from ``state`` (a leading R axis), for at most
+    ``max_steps`` more iterations and at most ``num_iters`` in all ->
+    EMState with a leading R axis.
+
+    The fits still running have all completed ``max(state.iteration)``
+    iterations, so the loop goes on from there; the iterations are the
+    same operations whether they run in one call or in several."""
     x = x.to(torch.float32)
-    init = torch.as_tensor(init_resps, dtype=torch.float32, device=x.device)
-    r, n, k = init.shape
+    n = x.shape[0]
     mask = (torch.ones(n, device=x.device) if mask is None
             else torch.as_tensor(mask, device=x.device).to(torch.float32))
-    resp = init.permute(1, 0, 2).contiguous()                       # [N, R, K]
-    means = torch.zeros((r, k, x.shape[1]), device=x.device)
-    weights = torch.full((r, k), 1.0 / k, device=x.device)
-    ll = torch.full((r,), float("-inf"), device=x.device)
-    it = torch.zeros(r, dtype=torch.int32, device=x.device)
-    done = torch.zeros(r, dtype=torch.bool, device=x.device)
-    history = torch.full((r, num_iters), float("nan"), device=x.device)
-    cols = torch.arange(num_iters, device=x.device)
+    resp = state.responsibilities.permute(1, 0, 2).contiguous()     # [N, R, K]
+    means, weights, ll = state.means, state.weights, state.log_likelihood
+    it, done, history = state.iteration, state.done, state.history
+    cols = torch.arange(history.shape[-1], device=x.device)
+    first = int(it.max()) if it.numel() else 0
+    last = num_iters if max_steps is None else min(num_iters, first + max_steps)
     with full_fp32():
-        for step in range(num_iters):
+        for step in range(first, last):
+            # the stop test reads ``done`` on the host: one sync an
+            # iteration (the reference's while_loop keeps it on device)
+            if bool(done.all()):
+                break
             run = ~done
             new_resp, new_means, new_weights, mean_ll = _step(x, resp, mask, eps)
             stop = (mean_ll - ll < tol) & (step > 0)
@@ -102,11 +126,13 @@ def _fit(x, init_resps, num_iters, eps, tol, mask):
                                   history)
             it = it + run.to(torch.int32)
             done = done | (run & stop)
-            # the stop test reads ``done`` on the host: one sync an
-            # iteration (the reference's while_loop keeps it on device)
-            if bool(done.all()):
-                break
     return EMState(it, resp.permute(1, 0, 2), means, weights, ll, done, history)
+
+
+def _fit(x, init_resps, num_iters, eps, tol, mask):
+    """R fits in lockstep -> EMState with a leading R axis."""
+    return resume_fit(x, _start(init_resps, x.shape[1], num_iters, x.device), num_iters,
+                      eps, tol, mask)
 
 
 def bernoulli_mixture_em(x, init_resp, num_iters: int = 50, eps: float = 0.01,

@@ -81,28 +81,38 @@ def _clip_feature_maps(clips, cfg: PipelineConfig, device=None, batch: int = 128
     clips shorter than one frame).  Rows past a map's valid frames are
     False, so the stack is the reference's list of maps padded with
     zeros.  ``plain=True`` runs the kernels' plain versions."""
+    stack, lengths, _kept = _clip_maps_kept(clips, cfg, device, batch, plain)
+    return stack, lengths
+
+
+def _clip_maps_kept(clips, cfg: PipelineConfig, device=None, batch: int = 128,
+                    plain: bool = False):
+    """``_clip_feature_maps`` -> (stack, valid frames, the indices into
+    ``clips`` of the maps kept [N] int64 numpy)."""
     fcfg = cfg.frontend
     dev = resolve_device(device)
     min_len = fcfg.frame_length + fcfg.hop_length  # >= 1 feature frame
-    usable = [c for c in clips if len(c) >= min_len]
-    if not usable:
+    usable = np.asarray([i for i, c in enumerate(clips) if len(c) >= min_len], np.int64)
+    if not len(usable):
         raise ValueError("no usable clips (all shorter than one frame)")
-    pad = bucket_length(max(len(c) for c in usable), quantum=4096)
-    stacks, lengths = [], []
+    pad = bucket_length(max(len(clips[i]) for i in usable), quantum=4096)
+    stacks, lengths, kept = [], [], []
     for i0 in range(0, len(usable), batch):
         chunk = usable[i0 : i0 + batch]
         wavs = np.zeros((batch, pad), np.float32)
         vs = np.zeros((batch,), np.int32)
-        for r, c in enumerate(chunk):
-            wavs[r, : len(c)] = c
-            vs[r] = len(c)
+        for r, ci in enumerate(chunk):
+            wavs[r, : len(clips[ci])] = clips[ci]
+            vs[r] = len(clips[ci])
         fm = frontend_batch(torch.from_numpy(wavs).to(dev), torch.from_numpy(vs).to(dev),
                             fcfg, plain=plain)
         vfs = fm.valid_frames.cpu().numpy()
         keep = np.flatnonzero(vfs >= 1)
         stacks.append(fm.binary[torch.from_numpy(keep).to(dev)])
         lengths.append(vfs[keep])
-    return torch.cat(stacks), np.concatenate(lengths).astype(np.int64)
+        kept.append(chunk[keep])
+    return (torch.cat(stacks), np.concatenate(lengths).astype(np.int64),
+            np.concatenate(kept))
 
 
 def _code_map_list(stack, lengths, parts, pcfg):
@@ -202,18 +212,15 @@ def detect_corpus(
 ) -> CorpusDetections:
     """Scan every utterance with the bank; fixed top-K detections per
     utterance; labels for ``target_phone``.  The streaming batch scan
-    serves the ``fft`` and ``conv`` scorers on raw-edge banks; exact
-    int32 scores, the ``pallas`` backend and parts-coded banks run the
-    per-utterance loop."""
-    if manifest is not None:
-        raise NotImplementedError(
-            "manifest: scan resume is not ported yet (ROADMAP.md Queue 1, "
-            "item 2, 'Manifest resume')"
-        )
+    serves the ``fft`` and ``conv`` scorers on raw-edge banks, with an
+    optional ``manifest`` (``checkpoint.ScanManifest``) to resume from;
+    exact int32 scores, the ``pallas`` backend and parts-coded banks run
+    the per-utterance loop, which does not resume and ignores
+    ``manifest``, as in the reference."""
     dcfg = cfg.detect
     if (not dcfg.exact_scores and bank.parts is None
             and dcfg.score_backend in ("fft", "conv")):
-        return detect_corpus_stream(corpus, bank, cfg, target_phone)
+        return detect_corpus_stream(corpus, bank, cfg, target_phone, manifest)
     return _detect_corpus_loop(corpus, bank, cfg, target_phone)
 
 

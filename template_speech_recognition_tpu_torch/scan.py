@@ -22,15 +22,26 @@ Counterpart of ``template_speech_recognition_tpu.scan``
   are exact in float32), so the knobs change no detection.  Unlike the
   reference's grouped mode, a grouped batch is copied to the host once
   (in its group's fetch, not also on its own), and the depth still
-  bounds the work in flight: at most depth x group + group - 1 batches.
+  bounds the work in flight: at most depth x group + group - 1 batches;
+* ``manifest`` (a ``checkpoint.ScanManifest``): batches are shards,
+  numbered in dispatch order (full buckets as they fill, then the tails
+  in bucket order, as the reference numbers them); each computed shard
+  is recorded when its fetch is drained, a completed shard is reloaded
+  from disk (checked by its utterances and their lengths) and never
+  recomputed, and on a failure the batches already run are fetched and
+  recorded before the error goes on, so a scan killed part way resumes
+  where it stopped.  A manifest written by either package resumes in
+  the other;
+* ``SCAN_UPLOAD_INT16=1`` (PCM16 upload): waveforms go up as int16
+  (``round(w * 32768)``, clipped) and become ``float32 / 32768`` on the
+  device, half the bytes of the float upload; exact for PCM16 sources.
 
 As in the reference, the Pallas scorer and exact scores are not
 options of the stream (``pipeline.detect_corpus`` routes them to its
-per-utterance loop) and raise ``ValueError``.  Options of the reference
-that are not ported yet (manifest resume, PCM16 upload, per-process
-feeding) raise ``NotImplementedError`` naming their ROADMAP item.
-``SCAN_DEBUG`` (the reference's dispatch and drain prints on stderr)
-is ignored; no other option is.
+per-utterance loop) and raise ``ValueError``.  Per-process feeding
+(``local_rows``) is not ported yet and raises ``NotImplementedError``
+naming its ROADMAP item.  ``SCAN_DEBUG`` (the reference's dispatch and
+drain prints on stderr) is ignored; no other option is.
 """
 
 from __future__ import annotations
@@ -177,6 +188,7 @@ def scan_step(
 ):
     """One scan step: waveforms -> fixed-size detections, no host sync.
     Padded batch rows (valid_samples == 0) come out as all -inf.
+    An int16 batch (PCM16 upload) becomes ``float32 / 32768`` first.
 
     ``scorer``: an ``FFTBank`` runs the FFT scorer; a flat LLR filter
     ``(W, c)`` runs the f32 conv (``score_backend="conv"``).  ``dtw``:
@@ -191,6 +203,8 @@ def scan_step(
             marks.append((name, ev_))
 
     mark("start")
+    if wavs.dtype == torch.int16:
+        wavs = wavs.to(torch.float32) * (1.0 / 32768.0)
     fm = frontend_batch_flat(wavs, valid_samples, fcfg, plain=plain)
     mark("frontend")
     time_major = isinstance(scorer, FFTBank)
@@ -214,7 +228,7 @@ def scan_step(
     return s, t, k
 
 
-def _check_options(cfg: PipelineConfig, manifest) -> None:
+def _check_options(cfg: PipelineConfig) -> None:
     dcfg = cfg.detect
     if dcfg.score_backend not in ("fft", "conv"):
         raise ValueError(f"streaming scan supports fft|conv, got {dcfg.score_backend!r}")
@@ -222,11 +236,6 @@ def _check_options(cfg: PipelineConfig, manifest) -> None:
         raise ValueError(
             "exact_scores: the streaming scan has no int32 path; "
             "pipeline.detect_corpus runs it in its per-utterance loop"
-        )
-    if manifest is not None:
-        raise NotImplementedError(
-            "manifest: scan resume is not ported yet (ROADMAP.md Queue 1, "
-            "item 2, 'Manifest resume')"
         )
 
 
@@ -242,8 +251,10 @@ def detect_corpus_stream(
     contract as the reference (scores allclose, detections identical).
 
     ``plain=True`` runs the kernels' plain versions (the reference the
-    kernels are held against)."""
-    _check_options(cfg, manifest)
+    kernels are held against).  ``manifest``: an optional
+    ``checkpoint.ScanManifest`` to record the scan's shards in and to
+    resume it from (the module's docstring)."""
+    _check_options(cfg)
     fcfg, dcfg = cfg.frontend, cfg.detect
     dev = bank.device
     wf, cf = bank.llr()
@@ -273,8 +284,14 @@ def detect_corpus_stream(
 
     return stream_scan(
         corpus, fcfg, max(1, dcfg.batch_size), compute, bank.num_templates,
-        dev, target_phone=target_phone,
+        dev, target_phone=target_phone, manifest=manifest,
     )
+
+
+def _pcm16(wav) -> np.ndarray:
+    """A float waveform on the PCM16 grid, as int16 (the reference's
+    ``SCAN_UPLOAD_INT16`` rows)."""
+    return np.clip(np.round(np.asarray(wav) * 32768.0), -32768, 32767).astype(np.int16)
 
 
 def stream_scan(
@@ -285,26 +302,24 @@ def stream_scan(
     num_templates: int,
     device: torch.device,
     target_phone: str | None = None,
+    manifest=None,
     local_rows=None,
 ) -> CorpusDetections:
     """bucket -> batch -> ``compute(wavs [B, S], valid [B], marks) ->
-    (s, t, k)`` on ``device`` -> grouped, windowed fetch (the module's
-    docstring) -> ``DetectionSet``."""
+    (s, t, k)`` on ``device`` -> grouped, windowed fetch [-> manifest]
+    (the module's docstring) -> ``DetectionSet``."""
     if local_rows is not None:
         raise NotImplementedError(
             "local_rows: per-process lazy feeding is not ported yet "
             "(ROADMAP.md Queue 1, item 7, 'parallel/ on torch.distributed')"
         )
-    if os.environ.get("SCAN_UPLOAD_INT16", "0") == "1":
-        raise NotImplementedError(
-            "SCAN_UPLOAD_INT16: PCM16 upload is not ported yet (ROADMAP.md "
-            "Queue 1, item 2, 'PCM16 upload')"
-        )
+    upload_i16 = os.environ.get("SCAN_UPLOAD_INT16", "0") == "1"
     # the reference's fetch knobs, read as it reads them
     depth = max(int(os.environ.get("SCAN_PIPELINE_DEPTH", "3")), 1)
     group_n = max(int(os.environ.get("SCAN_FETCH_GROUP", "8")), 1)
     cuda = device.type == "cuda"
     stats = StageCounters()
+    done_shards = manifest.completed() if manifest is not None else set()
     results: dict[int, tuple] = {}
     labels: list[np.ndarray] = []
     utt_ids: list[str] = []
@@ -314,22 +329,42 @@ def stream_scan(
     device_ms = collections.defaultdict(float)
     total_samples = 0
     n_batches = 0
+    n_loaded = 0
     n_fetches = 0
     stats.start("scan")
 
-    def flush(items, pad):
+    def load(sid, items):
+        """A completed shard from the manifest, checked against the
+        batch the scan would run, straight into the results."""
+        gidxs = [g for g, _w in items]
+        lens = [len(w) for _g, w in items]
+        z = manifest.load_shard(sid)
+        if list(z["gidx"]) != gidxs or list(z["ns"]) != lens:
+            raise ValueError(
+                f"manifest shard {sid} covers utterances {list(z['gidx'])} "
+                f"(lengths {list(z['ns'])}), scan expects {gidxs} (lengths "
+                f"{lens}): corpus or config changed since the checkpointed scan"
+            )
+        # rows past the shard's utterances (a padded tail) are not read
+        for row, g in enumerate(gidxs):
+            results[g] = (np.asarray(z["s"][row], np.float32),
+                          np.asarray(z["t"][row]).astype(np.int32),
+                          np.asarray(z["k"][row]).astype(np.int32))
+
+    def flush(sid, items, pad):
         b_eff = batch_size
         if len(items) < batch_size:
             b_eff = 1
             while b_eff < len(items):
                 b_eff *= 2
             b_eff = min(b_eff, batch_size)
-        wavs = torch.zeros((b_eff, pad), dtype=torch.float32, pin_memory=cuda)
+        dt = torch.int16 if upload_i16 else torch.float32
+        wavs = torch.zeros((b_eff, pad), dtype=dt, pin_memory=cuda)
         vs = torch.zeros((b_eff,), dtype=torch.int32, pin_memory=cuda)
         w_np, v_np = wavs.numpy(), vs.numpy()
         for row, (_g, payload) in enumerate(items):
             v_np[row] = len(payload)
-            w_np[row, : len(payload)] = payload
+            w_np[row, : len(payload)] = _pcm16(payload) if upload_i16 else payload
         marks = [] if cuda else None
         s, t, k = compute(
             wavs.to(device, non_blocking=True), vs.to(device, non_blocking=True),
@@ -338,7 +373,8 @@ def stream_scan(
         # times and template ids are exact in float32 (< 2**24): one
         # packed [3, B, top-K] array a batch, left on the device
         packed = torch.stack([s, t.to(torch.float32), k.to(torch.float32)])
-        return ([g for g, _w in items], packed, marks, (wavs, vs))
+        return (sid, [g for g, _w in items], [len(w) for _g, w in items], packed, marks,
+                (wavs, vs))
 
     def start_fetch():
         """Pack the open group's triples into one array (zero-padded to
@@ -348,13 +384,14 @@ def stream_scan(
         if not open_grp:
             return
         if len(open_grp) == 1:
-            arr = open_grp[0][1][None]
+            arr = open_grp[0][3][None]
         else:
-            bmax = max(b[1].shape[1] for b in open_grp)
-            kmax = max(b[1].shape[2] for b in open_grp)
+            bmax = max(b[3].shape[1] for b in open_grp)
+            kmax = max(b[3].shape[2] for b in open_grp)
             arr = torch.zeros((len(open_grp), 3, bmax, kmax), dtype=torch.float32,
                               device=device)
-            for i, (_g, packed, _m, _w) in enumerate(open_grp):
+            for i, batch in enumerate(open_grp):
+                packed = batch[3]
                 arr[i, :, : packed.shape[1], : packed.shape[2]] = packed
         done = None
         if cuda:
@@ -364,8 +401,8 @@ def stream_scan(
             done.record()
         else:
             host = arr
-        metas = [(g, tuple(packed.shape[1:]), marks, keep)
-                 for g, packed, marks, keep in open_grp]
+        metas = [(sid, g, lens, tuple(packed.shape[1:]), marks, keep)
+                 for sid, g, lens, packed, marks, keep in open_grp]
         inflight.append((metas, host, done))
         open_grp.clear()
         n_fetches += 1
@@ -375,12 +412,16 @@ def stream_scan(
         if done is not None:
             done.synchronize()
         a = host.numpy()
-        for i, (gidxs, (_b, kb), marks, _keep_alive) in enumerate(metas):
+        for i, (sid, gidxs, lens, (b, kb), marks, _keep_alive) in enumerate(metas):
             for (_n0, e0), (name, e1) in zip(marks or [], (marks or [])[1:]):
                 device_ms[name] += e0.elapsed_time(e1)
-            s = np.asarray(a[i, 0, :, :kb], np.float32)
-            t = a[i, 1, :, :kb].astype(np.int32)
-            k = a[i, 2, :, :kb].astype(np.int32)
+            s = np.asarray(a[i, 0, :b, :kb], np.float32)
+            t = a[i, 1, :b, :kb].astype(np.int32)
+            k = a[i, 2, :b, :kb].astype(np.int32)
+            if manifest is not None:
+                manifest.record(sid, {"s": s, "t": t, "k": k,
+                                      "gidx": np.asarray(gidxs, np.int64),
+                                      "ns": np.asarray(lens, np.int64)})
             for row, g in enumerate(gidxs):
                 results[g] = (s[row], t[row], k[row])
 
@@ -391,35 +432,64 @@ def stream_scan(
             while len(inflight) > depth:
                 drain(inflight.popleft())
 
-    for gidx, (uid, wav, phones) in enumerate(corpus.iter_utterances()):
-        nf = len(wav)
-        total_samples += nf
-        utt_ids.append(uid)
-        if target_phone is not None:
-            labels.append(np.asarray(
-                [s0 // fcfg.hop_length
-                 for (ph, s0, _e) in phones if ph == target_phone],
-                dtype=np.int64,
-            ))
+    def dispatch(sid, items, pad):
+        nonlocal n_batches, n_loaded
+        if sid in done_shards:
+            load(sid, items)
+            n_loaded += 1
         else:
-            labels.append(np.zeros(0, np.int64))
-        stats.add("frames", float(
-            (nf - fcfg.frame_length) // fcfg.hop_length
-            if nf >= fcfg.frame_length else 0
-        ))
-        pad = bucket_length(nf)
-        pending.setdefault(pad, []).append((gidx, wav))
-        if len(pending[pad]) == batch_size:
-            submit(flush(pending.pop(pad), pad))
+            submit(flush(sid, items, pad))
             n_batches += 1
-    # partial tail batches, one per bucket (rows past the tail stay
-    # zero -> valid 0 -> all -inf detections, dropped by DetectionSet)
-    for pad in sorted(pending):
-        submit(flush(pending[pad], pad))
-        n_batches += 1
-    start_fetch()
-    while inflight:
-        drain(inflight.popleft())
+
+    def drain_surviving():
+        """After a failure: fetch the batches already run and record
+        them, oldest first, up to the first fetch that fails too (on the
+        card a fault is sticky, so that may be the first)."""
+        try:
+            start_fetch()
+        except Exception:
+            open_grp.clear()
+        while inflight:
+            try:
+                drain(inflight.popleft())
+            except Exception:
+                break
+
+    shard_id = 0
+    try:
+        for gidx, (uid, wav, phones) in enumerate(corpus.iter_utterances()):
+            nf = len(wav)
+            total_samples += nf
+            utt_ids.append(uid)
+            if target_phone is not None:
+                labels.append(np.asarray(
+                    [s0 // fcfg.hop_length
+                     for (ph, s0, _e) in phones if ph == target_phone],
+                    dtype=np.int64,
+                ))
+            else:
+                labels.append(np.zeros(0, np.int64))
+            stats.add("frames", float(
+                (nf - fcfg.frame_length) // fcfg.hop_length
+                if nf >= fcfg.frame_length else 0
+            ))
+            pad = bucket_length(nf)
+            pending.setdefault(pad, []).append((gidx, wav))
+            if len(pending[pad]) == batch_size:
+                dispatch(shard_id, pending.pop(pad), pad)
+                shard_id += 1
+        # partial tail batches, one per bucket (rows past the tail stay
+        # zero -> valid 0 -> all -inf detections, dropped by DetectionSet)
+        for pad in sorted(pending):
+            dispatch(shard_id, pending[pad], pad)
+            shard_id += 1
+        start_fetch()
+        while inflight:
+            drain(inflight.popleft())
+    except BaseException:
+        if manifest is not None:
+            drain_surviving()
+        raise
     if not utt_ids:
         raise ValueError("empty corpus")
 
@@ -427,6 +497,8 @@ def stream_scan(
     dets = ev.DetectionSet.from_per_utterance(per_utt)
     stats.stop("scan")
     stats.add("batches", float(n_batches))
+    if manifest is not None:
+        stats.add("shards_loaded", float(n_loaded))
     stats.add("fetches", float(n_fetches))
     stats.add("utterances", float(len(utt_ids)))
     stats.add("audio_seconds", total_samples / corpus.sample_rate)

@@ -208,10 +208,11 @@ def test_loop_fft_branch_matches_reference(synth, jbank4, tbank4):
 
 
 @pytest.mark.parametrize("backend", ["fft", "conv"])
-def test_detect_corpus_routes_batchable_to_stream(synth, tbank4, backend):
+def test_detect_corpus_routes_batchable_to_stream(synth, tbank4, backend, tmp_path):
     """``fft`` and ``conv`` go through the streaming scan (its
     ``batches`` counter), the loop's results with them up to f32
-    summation order; a manifest raises, as the stream's does."""
+    summation order; a manifest goes to the stream: the scan records its
+    three shards there, and a second scan loads them all, bitwise."""
     cfg = TC.PipelineConfig(detect=TC.DetectConfig(score_backend=backend, batch_size=2))
     got = tpipe.detect_corpus(TAdapter(synth), tbank4, cfg, "aa")
     assert got.counters["batches"] == 3
@@ -220,8 +221,19 @@ def test_detect_corpus_routes_batchable_to_stream(synth, tbank4, backend):
         np.testing.assert_array_equal(tg, tw)
         np.testing.assert_array_equal(kg, kw)
         np.testing.assert_allclose(sg, sw, rtol=1e-5, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="manifest"):
-        tpipe.detect_corpus(TAdapter(synth), tbank4, cfg, "aa", manifest=object())
+    from template_speech_recognition_tpu_torch.checkpoint import ScanManifest
+
+    mdir = str(tmp_path / "m")
+    first = tpipe.detect_corpus(TAdapter(synth), tbank4, cfg, "aa", manifest=ScanManifest(mdir))
+    assert ScanManifest(mdir).completed() == {0, 1, 2}
+    again = tpipe.detect_corpus(TAdapter(synth), tbank4, cfg, "aa", manifest=ScanManifest(mdir))
+    assert (first.counters["batches"], again.counters["batches"]) == (3, 0)
+    assert again.counters["shards_loaded"] == 3
+    for name in ("scores", "times", "template_ids", "utterance_ids"):
+        np.testing.assert_array_equal(getattr(got.detections, name),
+                                      getattr(first.detections, name))
+        np.testing.assert_array_equal(getattr(again.detections, name),
+                                      getattr(first.detections, name))
 
 
 def test_evaluate_detections_matches_reference(synth, jbank4, tbank4):
@@ -298,16 +310,45 @@ def test_cli_evaluate_artifacts(tmp_path, capsys, jbank4):
     assert float(roc["eer"]) == pytest.approx(line["eer"], abs=5e-5)
 
 
-@pytest.mark.parametrize("argv", [
-    ["detect", "--manifest", "m"], ["evaluate", "--manifest", "m"],
-    ["evaluate", "--tensorboard", "tb"],
-])
+@pytest.mark.parametrize("argv", [["evaluate", "--tensorboard", "tb"]])
 def test_cli_unported_flags_raise(tmp_path, jbank4, argv):
     from template_speech_recognition_tpu_torch.cli import main
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main([argv[0], "--bank", _write_bank(tmp_path, jbank4), "--phone", "aa",
               "--device", "cpu", *argv[1:]])
+
+
+@pytest.mark.parametrize("command", ["detect", "evaluate"])
+def test_cli_scan_with_manifest(tmp_path, capsys, jbank4, command):
+    """``--manifest DIR``: the scan records its shards in DIR and gives the
+    clean scan's detections; run again, it loads them all and gives them
+    again (``detect``'s ``--out``, ``evaluate``'s artifacts and line)."""
+    from template_speech_recognition_tpu_torch.checkpoint import ScanManifest
+    from template_speech_recognition_tpu_torch.cli import main
+
+    bank_path = _write_bank(tmp_path, jbank4)
+    mdir = str(tmp_path / "m")
+    runs = []
+    for tag, extra in (("clean", []), ("record", ["--manifest", mdir]),
+                       ("resume", ["--manifest", mdir])):
+        out = str(tmp_path / tag)
+        where = ["--out", out + ".npz"] if command == "detect" else ["--artifacts", out]
+        assert main([command, "--bank", bank_path, "--phone", "aa", "--device", "cpu",
+                     *where, *extra]) == 0
+        line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        path = out + ".npz" if command == "detect" else os.path.join(out, "detections.npz")
+        runs.append((line, dict(np.load(path))))
+        if tag == "record":
+            assert ScanManifest(mdir).completed() == {0}
+    (line0, dets0), *rest = runs
+    assert len(dets0["scores"]) > 0
+    for line, dets in rest:
+        for key in ("scores", "times", "template_ids", "utterance_ids"):
+            np.testing.assert_array_equal(dets[key], dets0[key])
+        keys = ("num_detections",) if command == "detect" else (
+            "eer", "best_tpr", "num_labels", "num_detections")
+        assert {k: line[k] for k in keys} == {k: line0[k] for k in keys}
 
 
 # ---- the port twin of tests/test_roc_equality.py -----------------------
