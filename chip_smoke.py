@@ -16,7 +16,8 @@
    kernels, kernels 1, 2, 3 and 5 and the library calls of 1, 3 and 5
    over loops of 100 launches, so the wrapper's host time is not timed) and
    computes each kernel's bound (the larger of the least bytes / 3.35
-   TB/s and operations / the peak rate of their type).  The log-mel
+   TB/s and operations / the peak rate of their type; the H100's rates
+   of ``utils/profiling.py``).  The log-mel
    scan's kernels (n_mels 64: F = 63, D = 504) follow: kernel 1 in mel
    mode (also at n_mels 129, where the two-kernel path takes it), the
    radix select (kernel 8: the whole dual-rank select in one call of at
@@ -168,7 +169,32 @@
    exemplar-map rate, EM's ms an iteration beside its bytes bound,
    ``learn_parts``' wall, the coding rate, ``train_bank``'s wall with
    and without parts, checkpointed EM's ms and classification's
-   segments a second on each route.
+   segments a second on each route;
+8. runs the port's TIMIT input on a synthetic TIMIT tree that
+   ``io.fixtures.write_synthetic_timit`` writes (TIMIT's 1,680 TEST
+   utterances; 1,024 TRAIN, cut from TIMIT's 4,620; 16 phones, ~3 s, an
+   utterance): decodes it with the native and the Python readers
+   (bitwise equal); trains an aa / iy bank on ``TimitAdapter(split=
+   "TRAIN")`` (kernels 1, 2); scans the TEST split with that bank (K 2,
+   carried as K 8 on the card) and with the random K 1024 bank, with the
+   launch counts set to 0 just before and read just after, each scan
+   bitwise the same scan over the decoded waveforms in memory, the
+   ``SCAN_UPLOAD_INT16=1`` upload bitwise the float upload, and >= 99%
+   matched peaks with the same template against the plain scan; prints
+   audio-s/s with and without the decode and each scan's device busy
+   share over its ~211 batches; traces the exact loop over 8 TEST
+   utterances with ``utils.profiling.profile_trace`` (the Chrome trace
+   must hold the loop's ``frontend``, ``score`` and ``nms`` ranges and
+   kernels 1 and 2); runs ``python -m template_speech_recognition_tpu_torch``
+   ``train`` -> ``evaluate --tensorboard DIR`` -> ``classify --dtw`` on
+   ``timit:<root>`` (64 utterances), a process each, and ``classify
+   --dtw`` once more in this process (the DTW kernel's launches); holds
+   the classic per-map edge helpers of ``ops.edges`` on ``cuda`` against
+   kernel 2's map of kernel 1's planes for one batch of the TEST scan
+   (threshold ties exempt); and prints ``roofline_report`` of kernel 10
+   (``CostModel.direct_scores``) and ``CostModel.frontend_fused_roofline``
+   with the card's SM count and SM clock.  The peak rates behind every
+   bound come from ``utils/profiling.py``.
 
 The default, the DTW + int8 and the two log-mel scans are each run once
 more under ``torch.profiler``: the union of the device intervals in
@@ -199,11 +225,10 @@ SEED = 0
 B, SECONDS, N_UTT = 8, 30.0, 19
 K, L = 1024, 32
 T_BENCH = 3000             # frames per utterance of the reference's bench.py
-HBM_BPS = 3.35e12          # H100 SXM device memory, bytes/s
-FP32_FLOPS = 67e12         # fp32 outside the tensor cores
-BF16_FLOPS = 989e12        # bf16 tensor cores, dense
-TF32_FLOPS = 495e12        # TF32 tensor cores, dense
-INT8_OPS = 1979e12         # int8 tensor cores, dense
+# the H100's peak rates (device memory bytes/s; fp32, bf16 and TF32 flops
+# and int8 ops a second, dense): set by ``use_h100_peaks`` from the port's
+# utils/profiling.py, which keeps them beside the card they belong to
+HBM_BPS = FP32_FLOPS = BF16_FLOPS = TF32_FLOPS = INT8_OPS = None
 STEMS = ("frontend_planes", "select_binspread", "fft_block_dft", "fft_binmm", "fft_idft",
          "banded_dtw", "pair_llr", "fft_binmm_int8", "radix_select", "binspread", "correlation")
 # kernels each scan must launch (launch-count names)
@@ -362,6 +387,15 @@ def report_busy(torch, say, label, run, build, ctr):
     return (n_ops - n_built) / nb
 
 
+def use_h100_peaks() -> None:
+    global HBM_BPS, FP32_FLOPS, BF16_FLOPS, TF32_FLOPS, INT8_OPS
+    from template_speech_recognition_tpu_torch.utils import profiling as prof
+
+    HBM_BPS, FP32_FLOPS = prof.HBM_BYTES_PER_S, prof.PEAK_FP32_FLOPS
+    BF16_FLOPS, TF32_FLOPS, INT8_OPS = (prof.PEAK_BF16_FLOPS, prof.PEAK_TF32_FLOPS,
+                                        prof.PEAK_INT8_OPS)
+
+
 def bound_ms(nbytes: float, ops: float, rate: float):
     t_bytes = nbytes / HBM_BPS * 1e3
     t_ops = ops / rate * 1e3 if ops else 0.0
@@ -390,10 +424,15 @@ class Corpus:
     def iter_utterances(self):
         yield from self.utts
 
-    def head(self, n: int) -> "Corpus":
+    @staticmethod
+    def held(utts, sample_rate: int = 16000) -> "Corpus":
+        """Given (utt_id, waveform, phones) triples, held in memory."""
         out = object.__new__(Corpus)
-        out.sample_rate, out.utts = self.sample_rate, self.utts[:n]
+        out.sample_rate, out.utts = sample_rate, list(utts)
         return out
+
+    def head(self, n: int) -> "Corpus":
+        return Corpus.held(self.utts[:n], self.sample_rate)
 
 
 def check_planes(torch, frames, nfft, got, want, name, sample_rate=0, n_mels=0,
@@ -1505,9 +1544,8 @@ def pcm16_phase(torch, say, corpus, bank, scan_cfg, _cuda):
 
     from template_speech_recognition_tpu_torch.scan import _pcm16, detect_corpus_stream
 
-    pcm = object.__new__(Corpus)
-    pcm.sample_rate = corpus.sample_rate
-    pcm.utts = [(u, _pcm16(w).astype(np.float32) / 32768.0, p) for u, w, p in corpus.utts]
+    pcm = Corpus.held([(u, _pcm16(w).astype(np.float32) / 32768.0, p)
+                       for u, w, p in corpus.utts], corpus.sample_rate)
 
     def run(int16):
         prev = os.environ.pop("SCAN_UPLOAD_INT16", None)
@@ -1999,6 +2037,337 @@ def training_phase(torch, dev, C, say, scan_corpus, scan_cfg, flips, record, row
                       pbank.template_length + pcfg.patch_time - 1, 1e-5, "parts loop", say)
 
 
+# ---- TIMIT input: io/, TimitAdapter, the CLI's timit:<root> ----------------
+
+TIMIT_TEST = 1680          # TIMIT's test set, utterances
+TIMIT_TRAIN = 1024         # TIMIT's 4,620 training utterances, cut
+TIMIT_PHONES = 16          # phones an utterance: ~3 s, TIMIT's mean
+CLI_UTTS = 64              # the CLI's tree, half TRAIN, half TEST
+ROW10_TABLE_MS = 3.2234    # PERF.md's bound of row 10 (T - L + 1 starts)
+
+
+def edge_helper_check(torch, say, dev, fcfg, wavs, nvalid):
+    """The classic per-map helpers of ``ops.edges`` on ``cuda``, on kernel
+    1's planes of one batch of the TIMIT scan, against kernel 2's map of
+    the same planes (the scan's own map: the two-kernel frontend).  A
+    cell may differ only where a response ties its channel's threshold
+    (within the spread of such a cell), as ``map_flips`` exempts."""
+    from template_speech_recognition_tpu_torch.frontend import planes as fp
+    from template_speech_recognition_tpu_torch.ops import edges
+    from template_speech_recognition_tpu_torch.ops import selbin_kernel as k2
+    from template_speech_recognition_tpu_torch.ops.layout import flat_to_channels
+
+    b, f = wavs.shape[0], fcfg.feature_freqs
+    rt, rf, q = fcfg.spread_time, fcfg.spread_freq, fcfg.edge_quantile
+    frames = fp._windowed_frames(wavs, fcfg)
+    stacked = fp._stacked_planes(frames, fcfg, False)                 # kernel 1
+    planes = stacked.reshape(4, b, -1, f)
+    fm = fp.frontend_batch_flat(wavs, nvalid, fcfg)
+    valid = fm.valid_frames
+    flat, _keys = k2.select_binspread(planes, fp._dual_ranks(valid, f, q), valid, rf, rt)
+    check(bool(torch.equal(flat.to(torch.bool), fm.binary)),
+          "edge helpers: kernel 2 on kernel 1's planes is not the scan's map")
+    n_diff = n_tie = n_cells = 0
+    t0 = time.perf_counter()
+    for i in range(b):
+        v = int(valid[i])
+        if v == 0:
+            continue
+        resp = torch.stack([p for j in range(4) for p in (planes[j, i], -planes[j, i])], -1)
+        tau = edges.quantile_threshold(resp, q, v)
+        tau_sort = edges.quantile_threshold(resp, q, v, method="sort")
+        check(bool(torch.equal(tau, tau_sort)),
+              f"edge helpers: utterance {i}: radix and sort thresholds differ")
+        want = edges.mask_rows(edges.spread_binary(edges.binarize(resp, q, v), rt, rf), v)
+        got = flat_to_channels(flat[i].to(torch.bool), f)
+        ties = edges.mask_rows(edges.spread_binary(resp == tau, rt, rf), v)
+        diff = got != want
+        check(not bool((diff & ~ties).any()),
+              f"edge helpers: utterance {i}: {int((diff & ~ties).sum())} cells differ "
+              f"from kernel 2's map away from a threshold tie")
+        n_diff += int(diff.sum())
+        n_tie += int((resp[:v] == tau).sum())
+        n_cells += want.numel()
+    torch.cuda.synchronize()
+    say(f"edge helpers (ops.edges on cuda: quantile_threshold by radix and by sort, "
+        f"binarize, spread_binary rt {rt} rf {rf}, mask_rows) on kernel 1's planes of one "
+        f"TIMIT batch ({b} utterances, T_pad {planes.shape[2]}, F {f}): {n_diff} of {n_cells} "
+        f"cells differ from kernel 2's map (tolerance: threshold ties only; {n_tie} valid "
+        f"cells tie their threshold); {time.perf_counter() - t0:.3f} s")
+
+
+def timit_phase(torch, say, dev, C, bank, bank_build, rows, _cuda):
+    """A synthetic TIMIT tree through the port's TIMIT input: written by
+    ``io.fixtures.write_synthetic_timit``; decoded by the native and the
+    Python readers (bitwise); a bank trained on its TRAIN split
+    (``TimitAdapter``: kernels 1, 2); the default scan of its TEST split
+    with that bank and with the random K 1024 bank, each bitwise the same
+    scan over the decoded waveforms held in memory, the int16 upload
+    bitwise the float upload; the exact loop traced by
+    ``utils.profiling.profile_trace``; the CLI's ``train`` ->
+    ``evaluate --tensorboard`` -> ``classify --dtw`` on ``timit:<root>``;
+    the edge helpers against kernel 2's map; the roofline lines."""
+    import contextlib
+    import glob
+    import io
+    import os
+    import tempfile
+
+    from template_speech_recognition_tpu_torch import scan as scan_mod
+    from template_speech_recognition_tpu_torch.cli import main as cli_main
+    from template_speech_recognition_tpu_torch.corpus import TimitAdapter
+    from template_speech_recognition_tpu_torch.io import audio, native
+    from template_speech_recognition_tpu_torch.io.corpus import TimitCorpus
+    from template_speech_recognition_tpu_torch.io.fixtures import write_synthetic_timit
+    from template_speech_recognition_tpu_torch.ops import correlation_kernel as kc
+    from template_speech_recognition_tpu_torch.pipeline import (
+        detect_corpus,
+        evaluate_detections,
+        train_bank,
+    )
+    from template_speech_recognition_tpu_torch.utils.profiling import (
+        CostModel,
+        profile_trace,
+        roofline_report,
+    )
+
+    cfg = C.PipelineConfig()
+    fcfg = cfg.frontend
+    scan_cfg = C.PipelineConfig(detect=C.DetectConfig(batch_size=B))
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. the tree
+        root = os.path.join(tmp, "timit")
+        t0 = time.perf_counter()
+        write_synthetic_timit(root, num_train=TIMIT_TRAIN, num_test=TIMIT_TEST,
+                              phones_per_utterance=TIMIT_PHONES, seed=SEED)
+        t_write = time.perf_counter() - t0
+        corpus = TimitCorpus(root)
+        test, train = corpus.split("TEST"), corpus.split("TRAIN")
+        check(len(test) == TIMIT_TEST and len(train) == TIMIT_TRAIN,
+              f"TIMIT tree: {len(test)} TEST, {len(train)} TRAIN utterances")
+        say(f"TIMIT tree (io.fixtures.write_synthetic_timit, WAV and SPHERE alternating, "
+            f"{TIMIT_PHONES} phones an utterance): TEST {len(test)} utterances (TIMIT's), "
+            f"TRAIN {len(train)} (cut from TIMIT's 4,620 to keep the phase near a minute of "
+            f"host time); written in {t_write:.1f} s")
+
+        # 2. decode: the native reader and the Python readers, bitwise
+        check(native.available(), "the native reader does not load (native/Makefile)")
+        decoded = {}
+        for name, read in (("native", native.read_audio), ("Python", audio.read_audio)):
+            t0 = time.perf_counter()
+            decoded[name] = [read(r.wav_path) for r in corpus.records]
+            decoded[name + "_s"] = time.perf_counter() - t0
+        check(all(ra == rb == 16000 and wa.dtype == wb.dtype == np.float32
+                  and np.array_equal(wa, wb)
+                  for (wa, ra), (wb, rb) in zip(decoded["native"], decoded["Python"])),
+              "TIMIT decode: the native and the Python readers differ")
+        audio_s = sum(len(w) for w, _r in decoded["native"]) / 16000
+        say(f"TIMIT decode of {len(corpus.records)} utterances ({audio_s:.1f} audio-s): "
+            + ", ".join(f"{n} {decoded[n + '_s']:.3f} s = {audio_s / decoded[n + '_s']:.1f} "
+                        f"audio-s/s" for n in ("native", "Python"))
+            + "; bitwise equal (host decode, warm page cache)")
+        waves = {r.utt_id: w for r, (w, _sr) in zip(corpus.records, decoded["native"])}
+        del decoded
+
+        # 3. training on the TRAIN split (kernels 1 and 2)
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        tbank = train_bank(TimitAdapter(corpus, "TRAIN"), list(TRAIN_PHONES), cfg, device=dev)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        counts = _cuda.launch_counts()
+        for name in ("frontend_planes", "select_binspread"):
+            check(counts.get(name, 0) > 0, f"TIMIT training: {name} launched {counts}")
+        check(tbank.labels == list(TRAIN_PHONES) and bool(torch.isfinite(tbank.templates).all()),
+              f"TIMIT training: the bank's labels {tbank.labels} or templates")
+        n_ex = {ph: len(corpus.occurrences(ph, "TRAIN")) for ph in TRAIN_PHONES}
+        say(f"TIMIT training: train_bank({'/'.join(TRAIN_PHONES)}) on TimitAdapter(split="
+            f"'TRAIN') on the card: {t_train:.3f} s with the decode ({n_ex} exemplars), "
+            f"K {tbank.num_templates}, L {tbank.template_length}; launches {counts}")
+
+        # 4. the default scan of the TEST split, both banks
+        test_ad = TimitAdapter(corpus, "TEST")
+        mem = Corpus.held((r.utt_id, waves[r.utt_id],
+                           [(s.phone, s.start_sample, s.end_sample)
+                            for s in corpus.load_phones(r)]) for r in test)
+        head = mem.head(2 * B)
+        first = []
+        real_fe = scan_mod.frontend_batch_flat
+
+        def spy(w, vs, *a, **k):
+            if not first:
+                first.append((w.clone(), vs.clone()))
+            return real_fe(w, vs, *a, **k)
+
+        def scan(b_, corp, int16=False):
+            prev = os.environ.pop("SCAN_UPLOAD_INT16", None)
+            if int16:
+                os.environ["SCAN_UPLOAD_INT16"] = "1"
+            try:
+                return scan_mod.detect_corpus_stream(corp, b_, scan_cfg, target_phone="aa")
+            finally:
+                os.environ.pop("SCAN_UPLOAD_INT16", None)
+                if prev is not None:
+                    os.environ["SCAN_UPLOAD_INT16"] = prev
+
+        for label, b_ in (("random K 1024", bank), ("trained", tbank)):
+            scan(b_, head)                                                     # warm-up
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+            scan_mod.frontend_batch_flat = spy
+            try:
+                res = scan(b_, test_ad)
+            finally:
+                scan_mod.frontend_batch_flat = real_fe
+            torch.cuda.synchronize()
+            counts = _cuda.launch_counts()
+            ctr = res.counters
+            nb = int(ctr["batches"])
+            for name in SCAN_KERNELS:
+                check(counts.get(name, 0) == nb,
+                      f"TIMIT scan ({label}): {name} launched {counts.get(name, 0)}x in {nb} "
+                      f"batches")
+            check(test_ad.sample_rate == 16000 and ctr["utterances"] == TIMIT_TEST,
+                  f"TIMIT scan ({label}): {ctr['utterances']} utterances")
+            dets = res.detections
+            check(len(dets.scores) > 0 and bool(np.isfinite(dets.scores).all()),
+                  f"TIMIT scan ({label}): no detections")
+            in_mem = scan(b_, mem)
+            check(same_detections(dets, in_mem.detections),
+                  f"TIMIT scan ({label}): not bitwise the in-memory scan")
+            i16 = scan(b_, test_ad, int16=True)
+            check(same_detections(dets, i16.detections),
+                  f"TIMIT scan ({label}): the int16 upload is not bitwise the float upload")
+            ref = scan_mod.detect_corpus_stream(mem, b_, scan_cfg, target_phone="aa", plain=True)
+            frac, id_frac, *_ = match_detections(dets, ref.detections)
+            check(frac >= 0.99 and id_frac >= 0.99,
+                  f"TIMIT scan ({label}) vs plain scan: matched peaks {frac}, same template "
+                  f"{id_frac} (limit 0.99)")
+            rates = [scan(b_, c).counters["audio_s_per_s"] for c in (test_ad, mem, mem, test_ad)]
+            quality = ""
+            if "aa" in b_.labels:
+                m = evaluate_detections(res, cfg.detect.match_tolerance,
+                                        [lb == "aa" for lb in b_.labels])
+                quality = (f"; aa: EER {m['eer']:.4f}, best TPR {m['best_tpr']:.4f} over "
+                           f"{m['num_labels']:.0f} labels")
+            say(f"TIMIT scan ({label} bank) of the TEST split: {nb} batches, "
+                f"{ctr['audio_seconds']:.1f} audio-s, {ctr['audio_s_per_s']:.1f} audio-s/s with "
+                f"the decode (loop {ctr['time_scan_s']:.4f} s), in memory "
+                f"{in_mem.counters['audio_s_per_s']:.1f}, int16 upload "
+                f"{i16.counters['audio_s_per_s']:.1f}; then TIMIT, memory, memory, TIMIT: "
+                + ", ".join(f"{r:.1f}" for r in rates)
+                + f"; {len(dets.scores)} detections bitwise the in-memory scan's and the int16 "
+                  f"upload's; against the plain scan {frac:.4f} matched peaks, {id_frac:.4f} "
+                  f"same template{quality}; launches {counts}")
+            for corp, what in ((test_ad, "with the decode"), (mem, "in memory")):
+                report_busy(torch, say, f"TIMIT scan ({label} bank, {what})",
+                            lambda corp=corp: scan(b_, corp), bank_build(b_),
+                            scan(b_, corp).counters)
+            del res, in_mem, i16, ref
+
+        # 5. the exact loop over 8 TEST utterances under profile_trace
+        tdir = os.path.join(tmp, "trace")
+        ex_cfg = C.PipelineConfig(detect=C.DetectConfig(exact_scores=True))
+        with profile_trace(tdir) as prof:
+            res = detect_corpus(mem.head(B), tbank, ex_cfg, "aa")
+        (path,) = glob.glob(os.path.join(tdir, "*.json"))
+        with open(path) as fh:
+            names = [e.get("name", "") for e in json.load(fh)["traceEvents"]]
+        for want in ("frontend", "score", "nms"):
+            check(names.count(want) >= B, f"the trace holds {names.count(want)} '{want}' ranges")
+        kernels = {k: sum(k in n for n in names) for k in ("planes_kernel", "selbin_cluster")}
+        check(all(v >= B for v in kernels.values()), f"the trace's kernel events: {kernels}")
+        n_dev = sum(1 for e in prof.events() if e.device_type.name == "CUDA")
+        say(f"profile_trace of the exact loop over {B} TEST utterances: a Chrome trace of "
+            f"{os.path.getsize(path)} bytes, {len(names)} events ({n_dev} on the device): "
+            f"'frontend' {names.count('frontend')}, 'score' {names.count('score')}, 'nms' "
+            f"{names.count('nms')} ranges; kernel events {kernels}; "
+            f"{len(res.detections.scores)} detections")
+
+        # 6. the CLI on a small tree, as a user runs it
+        cli_root = os.path.join(tmp, "timit_cli")
+        write_synthetic_timit(cli_root, num_train=CLI_UTTS // 2, num_test=CLI_UTTS // 2,
+                              phones_per_utterance=TIMIT_PHONES, seed=SEED + 1)
+        spec = f"timit:{cli_root}"
+        bank_npz, tb = os.path.join(tmp, "cli_bank.npz"), os.path.join(tmp, "tb")
+        steps = (["train", "--phones", ",".join(TRAIN_PHONES), "--bank", bank_npz],
+                 ["evaluate", "--bank", bank_npz, "--phone", "aa", "--tensorboard", tb],
+                 ["classify", "--bank", bank_npz, "--dtw"])
+        lines = []
+        repo = os.path.dirname(os.path.abspath(__file__))
+        for argv in steps:
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "template_speech_recognition_tpu_torch", argv[0],
+                 "--corpus", spec, *argv[1:]],
+                cwd=repo, capture_output=True, text=True, timeout=300)
+            check(proc.returncode == 0,
+                  f"CLI {argv[0]} on {spec}: exit {proc.returncode}\n{proc.stderr[-2000:]}")
+            lines.append((json.loads(proc.stdout.strip().splitlines()[-1]), proc.stderr,
+                          time.perf_counter() - t0))
+        (tr, _e, tr_s), (ev, ev_err, ev_s), (cl, _e2, cl_s) = lines
+        check(tr["trained"] == list(TRAIN_PHONES) and tr["num_templates"] == 2,
+              f"CLI train: {tr}")
+        check(ev["num_labels"] > 0 and 0.0 <= ev["eer"] <= 1.0, f"CLI evaluate: {ev}")
+        check(cl["num_segments"] > 0 and cl["dtw"] and cl["classes"] == list(TRAIN_PHONES),
+              f"CLI classify: {cl}")
+        if "tensorboard" in ev:
+            events = glob.glob(os.path.join(tb, "events.out.tfevents*"))
+            check(len(events) == 1, f"CLI evaluate --tensorboard: {events}")
+            tb_text = f"tensorboard wrote {os.path.basename(events[0])}"
+        else:
+            check("tensorboard unavailable" in ev_err, "CLI evaluate: no tensorboard line")
+            tb_text = ("tensorboard unavailable: "
+                       + ev_err.split("tensorboard unavailable:")[1].strip().splitlines()[0])
+        # classify --dtw again in this process: the DTW kernel's launches
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            check(cli_main(["classify", "--corpus", spec, "--bank", bank_npz, "--dtw"]) == 0,
+                  "CLI classify --dtw (in process) failed")
+        counts = _cuda.launch_counts()
+        check(counts.get("banded_dtw", 0) >= 1, f"CLI classify --dtw: launches {counts}")
+        check(json.loads(buf.getvalue().strip().splitlines()[-1]) == cl,
+              "CLI classify --dtw: the in-process line differs from the subprocess's")
+        say(f"CLI on timit:<root> ({CLI_UTTS} utterances), python -m "
+            f"template_speech_recognition_tpu_torch on the card, a process each: train "
+            f"{tr_s:.1f} s {json.dumps(tr)}; evaluate --tensorboard {ev_s:.1f} s "
+            f"{json.dumps(ev)} ({tb_text}); classify --dtw {cl_s:.1f} s {json.dumps(cl)}; "
+            f"in process: launches {counts}")
+
+        # 7. the edge helpers on one batch of the TIMIT scan
+        edge_helper_check(torch, say, dev, fcfg, *first[0])
+
+    # 8. roofline lines
+    row10 = next(r for r in rows if r["name"] == kc.NAME and r.get("shape") == CORR_BENCH)
+    rep = roofline_report(CostModel.direct_scores(B, T_BENCH, K, L, 2048), row10["ms"] / 1e3)
+    say(f"roofline_report(CostModel.direct_scores(8, 3000, 1024, 32, 2048), kernel 10's "
+        f"{row10['ms']:.4f} ms): " + json.dumps({k: (round(v, 9) if isinstance(v, float) else v)
+                                                  for k, v in rep.items()})
+        + f"; the kernels line's bound {row10['bound_ms']:.4f} ms (PERF.md's table: "
+          f"{ROW10_TABLE_MS}). The cost model counts T = {T_BENCH} starts a map (the "
+          f"reference's formula, kept); the kernels line counts the T - L + 1 = "
+          f"{T_BENCH - L + 1} starts kernel 10 computes")
+    props = torch.cuda.get_device_properties(0)
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.split()[0]
+    samples = int(SECONDS * 16000)
+    fused = CostModel.frontend_fused_roofline(
+        B, samples, fcfg.frame_length, fcfg.hop_length, fcfg.nfft, 0, fcfg.spread_time,
+        fcfg.spread_freq, sm_count=props.multi_processor_count,
+        sm_clock_hz=float(clock) * 1e6)
+    k12 = [r["ms"] for r in rows if r["name"] in ("frontend_planes", "select_binspread")
+           and r.get("shape") in (None, SELBIN_BENCH)]
+    say(f"frontend_fused_roofline (B {B}, {samples} samples, nfft {fcfg.nfft}; "
+        f"{props.multi_processor_count} SMs at {clock} MHz): "
+        + ", ".join(f"{k} {v * 1e3:.4f} ms" for k, v in fused.items() if k.endswith("_s"))
+        + f"; bound by {fused['bound']}, {fused['roofline_s'] * 1e3:.4f} ms against kernels "
+          f"1 + 2's {sum(k12):.4f} ms ({len(k12)} rows of the kernels line)")
+
+
 def main() -> int:
     import torch
 
@@ -2010,6 +2379,7 @@ def main() -> int:
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here: {exc}", file=sys.stderr)
         return 2
+    use_h100_peaks()
     from template_speech_recognition_tpu_torch import config as C
     from template_speech_recognition_tpu_torch.convert import bank_from_numpy
     from template_speech_recognition_tpu_torch.detect import fft_scorer as fs
@@ -2913,6 +3283,11 @@ def main() -> int:
     t0 = time.perf_counter()
     training_phase(torch, dev, C, say, corpus, scan_cfg, flips["default"], record, rows)
     say(f"training phase: {time.perf_counter() - t0:.1f} s")
+
+    # ---- TIMIT input: the tree, decode, train, scan, trace, CLI --------
+    t0 = time.perf_counter()
+    timit_phase(torch, say, dev, C, bank, bank_build, rows, _cuda)
+    say(f"TIMIT phase: {time.perf_counter() - t0:.1f} s")
 
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -10,6 +10,11 @@ subcommands.
     python -m template_speech_recognition_tpu_torch classify \\
         --corpus synthetic --bank bank.npz [--dtw]
 
+``--corpus synthetic`` builds the in-memory fixture corpus;
+``--corpus timit:<root>`` reads every record of a TIMIT tree
+(``io.corpus.TimitCorpus`` through ``corpus.TimitAdapter``), as the
+reference does.
+
 ``--bank`` is the ``.npz`` that ``TemplateBank.save`` writes: ``train``
 writes it and ``detect`` and ``evaluate`` read it.  The reference's CLI
 writes and reads an orbax *directory* there instead, so a bank crosses
@@ -21,10 +26,13 @@ the reference's ``train``, ``detect``, ``evaluate`` and ``classify``:
 ``--exact`` (int32 scores), ``--score-backend``, ``--manifest DIR`` (a
 ``checkpoint.ScanManifest``: the stream records its shards there and a
 rerun resumes from them), ``evaluate``'s ``--artifacts`` (``roc.npz``,
-``detections.npz``, ``metrics.json``) and ``classify``'s ``--dtw``.
-``--tensorboard`` is not ported yet and raises; ``bench`` comes with the
-benchmark (ROADMAP.md Queue 1, item 1).  Every subcommand runs on the
-GPU unless ``--device cpu`` is given.
+``detections.npz``, ``metrics.json``) and ``--tensorboard DIR`` (the
+reference's scalars through torch's ``SummaryWriter``, where the
+``tensorboard`` package is installed), and ``classify``'s ``--dtw``.
+``bench`` comes with the benchmark (ROADMAP.md Queue 1, item 1).  Every
+subcommand runs on the GPU unless ``--device cpu`` is given; on the GPU
+``main`` first builds every kernel not built yet, all at once
+(``utils.compile_cache``).
 """
 
 from __future__ import annotations
@@ -32,25 +40,27 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 
 import numpy as np
 
 
 def _build_corpus(spec: str, seed: int):
+    from template_speech_recognition_tpu_torch.corpus import SyntheticAdapter, TimitAdapter
+
     if spec == "synthetic":
         from oracle.fixtures import make_synthetic_corpus
-
-        from template_speech_recognition_tpu_torch.corpus import SyntheticAdapter
 
         return SyntheticAdapter(
             make_synthetic_corpus(
                 num_utterances=6, phones_per_utterance=5, seed=seed
             )
         )
-    raise SystemExit(
-        f"unknown corpus spec {spec!r} (synthetic; TIMIT input is not "
-        "ported yet)"
-    )
+    if spec.startswith("timit:"):
+        from template_speech_recognition_tpu_torch.io.corpus import TimitCorpus
+
+        return TimitAdapter(TimitCorpus(spec.split(":", 1)[1]))
+    raise SystemExit(f"unknown corpus spec {spec!r} (synthetic | timit:<root>)")
 
 
 def _load_config(args):
@@ -142,11 +152,6 @@ def cmd_detect(args) -> int:
 def cmd_evaluate(args) -> int:
     from template_speech_recognition_tpu_torch.pipeline import evaluate_detections
 
-    if args.tensorboard:
-        raise NotImplementedError(
-            "--tensorboard: TensorBoard scalars are not ported yet (ROADMAP.md "
-            "Queue 1, item 8, 'utils/ and what is left')"
-        )
     cfg, result = _scan(args)
     metrics = evaluate_detections(result, cfg.detect.match_tolerance)
     summary = {
@@ -172,6 +177,23 @@ def cmd_evaluate(args) -> int:
         with open(os.path.join(args.artifacts, "metrics.json"), "w") as f:
             json.dump({**summary, "counters": result.counters}, f, indent=2)
         summary["artifacts"] = args.artifacts
+    if args.tensorboard:
+        # the reference's scalars and tags; the package stays optional
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except Exception as exc:
+            print(f"tensorboard unavailable: {exc}", file=sys.stderr)
+        else:
+            tw = SummaryWriter(args.tensorboard)
+            tw.add_scalar("eval/eer", float(metrics["eer"]))
+            tw.add_scalar("eval/best_tpr", float(metrics["best_tpr"]))
+            tw.add_scalar("eval/audio_s_per_s",
+                          float(result.counters.get("audio_s_per_s", 0.0)))
+            for i in range(len(metrics["tpr"])):
+                tw.add_scalar("roc/tpr", float(metrics["tpr"][i]), i)
+                tw.add_scalar("roc/fp_per_sec", float(metrics["fp_per_sec"][i]), i)
+            tw.close()
+            summary["tensorboard"] = args.tensorboard
     print(json.dumps(summary))
     return 0
 
@@ -218,7 +240,7 @@ def build_parser() -> argparse.ArgumentParser:
     sub = p.add_subparsers(dest="command", required=True)
 
     def base(sp):
-        sp.add_argument("--corpus", default="synthetic", help="synthetic")
+        sp.add_argument("--corpus", default="synthetic", help="synthetic | timit:<root>")
         sp.add_argument("--config", default=None, help="JSON PipelineConfig")
         sp.add_argument("--seed", type=int, default=0)
         sp.add_argument("--device", default=None,
@@ -266,7 +288,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="directory for roc.npz / detections.npz / "
                         "metrics.json artifacts")
     e.add_argument("--tensorboard", default=None,
-                   help="directory for tensorboard scalars (not ported yet)")
+                   help="directory for tensorboard scalars (ROC, EER)")
     e.set_defaults(fn=cmd_evaluate)
 
     c = sub.add_parser("classify", help="isolated-segment classification")
@@ -280,6 +302,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
+    if args.device is None or str(args.device).startswith("cuda"):
+        from template_speech_recognition_tpu_torch.utils.compile_cache import (
+            enable_compile_cache,
+        )
+
+        enable_compile_cache()
     return args.fn(args)
 
 

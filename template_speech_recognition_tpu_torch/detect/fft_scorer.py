@@ -71,7 +71,12 @@ class FFTBank:
     and ``w2_kmajor`` [bins, 2, K, Dp] their K-major copy, rows padded
     to 16 bytes (``ops.fft_binmm_kernel.kmajor_spectra``): the int8
     kernel's operand, built once here so the scan never transposes W2
-    (+336 MB of device memory at K 1024, D 2048, 80 bins)."""
+    (+336 MB of device memory at K 1024, D 2048, 80 bins).
+
+    On the card the kernels take K only in multiples of 8 (16-byte rows
+    of bf16 output), so a bank of another K carries zero templates up to
+    the next multiple (``k``: the spectra's columns); ``num_templates``
+    is the bank's own K, the scores' width."""
 
     w2: torch.Tensor
     c: torch.Tensor
@@ -80,6 +85,7 @@ class FFTBank:
     d: int
     w2_scale: torch.Tensor | None = None
     w2_kmajor: torch.Tensor | None = None
+    num_templates: int = 0
 
     @property
     def k(self) -> int:
@@ -140,6 +146,18 @@ def _bank_spectra(w: torch.Tensor, nfft: int, mm_dtype) -> torch.Tensor:
     return torch.cat([wr, wi], dim=1).to(mm_dtype)
 
 
+def pad_templates(w: torch.Tensor, c: torch.Tensor, multiple: int = 8):
+    """Filters [K, L, D] and offsets [K] with zero templates appended up
+    to the next multiple of ``multiple`` (the card's kernels' K); their
+    scores are sliced off (``FFTBank.num_templates``)."""
+    k = w.shape[0]
+    extra = -(-k // multiple) * multiple - k
+    if not extra:
+        return w, c
+    return (torch.cat([w, w.new_zeros((extra,) + tuple(w.shape[1:]))]),
+            torch.cat([c, c.new_zeros(extra)]))
+
+
 def build_fft_bank(w: torch.Tensor, c: torch.Tensor, nfft: int | None = None,
                    mm_dtype=None) -> FFTBank:
     """One-time per-bank setup: W [K, L, F, E] (or [K, L, D]) + c [K]
@@ -159,16 +177,20 @@ def build_fft_bank(w: torch.Tensor, c: torch.Tensor, nfft: int | None = None,
         nfft = pick_nfft(length, bank_k=k)
     if nfft - length + 1 <= 0:
         raise ValueError(f"nfft {nfft} too small for template length {length}")
+    w, c = w.reshape(k, length, d), c.to(torch.float32)
+    if w.device.type == "cuda":
+        w, c = pad_templates(w, c)
     if mm_dtype == torch.int8:
-        w2f = _bank_spectra(w.reshape(k, length, d), nfft, torch.float32)
+        w2f = _bank_spectra(w, nfft, torch.float32)
         scale = torch.clamp(w2f.abs().amax(dim=1), min=1e-30) / 127.0   # [bins, K]
         w2q = torch.clamp(torch.round(w2f / scale[:, None, :]), -127, 127)
         w2q = w2q.to(torch.int8).contiguous()
-        return FFTBank(w2=w2q, c=c.to(torch.float32), length=length, nfft=nfft, d=d,
-                       w2_scale=scale.contiguous(), w2_kmajor=kmajor_spectra(w2q))
-    w2 = _bank_spectra(w.reshape(k, length, d), nfft, mm_dtype)
-    return FFTBank(w2=w2.contiguous(), c=c.to(torch.float32), length=length,
-                   nfft=nfft, d=d)
+        return FFTBank(w2=w2q, c=c, length=length, nfft=nfft, d=d,
+                       w2_scale=scale.contiguous(), w2_kmajor=kmajor_spectra(w2q),
+                       num_templates=k)
+    w2 = _bank_spectra(w, nfft, mm_dtype)
+    return FFTBank(w2=w2.contiguous(), c=c, length=length, nfft=nfft, d=d,
+                   num_templates=k)
 
 
 def quantize_block_spectra(xr, xi, w2_scale):
@@ -245,6 +267,8 @@ def fft_sliding_scores(
         ycat = binmm_fn(xr, xi, bank.w2)                       # [2, bins, m, K]
     imat = _idft_basis(nfft, hop, mm, dev)                     # [2*bins, hop]
     scores_t = idft_fn(ycat.reshape(2 * bins, m * k), imat, bank.c, nblk)
+    if bank.num_templates and bank.num_templates != k:
+        scores_t = scores_t[..., : bank.num_templates].contiguous()
     if time_major:
         return scores_t if not trim else scores_t[:, :tout]
     return torch.transpose(scores_t[:, :tout], 1, 2)

@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from template_speech_recognition_tpu_torch.config import PipelineConfig
 from template_speech_recognition_tpu_torch.detect import evaluate as ev
@@ -68,6 +67,7 @@ from template_speech_recognition_tpu_torch.scan import (
 )
 from template_speech_recognition_tpu_torch.utils.device import resolve_device
 from template_speech_recognition_tpu_torch.utils.metrics import StageCounters
+from template_speech_recognition_tpu_torch.utils.profiling import named_scope
 
 
 def _clip_feature_maps(clips, cfg: PipelineConfig, device=None, batch: int = 128,
@@ -267,7 +267,7 @@ def _detect_corpus_loop(
         buf = torch.zeros((1, pad), dtype=torch.float32)
         buf[0, : len(wav)] = torch.from_numpy(np.asarray(wav, np.float32))
         nv = torch.tensor([len(wav)], dtype=torch.int32)
-        with record_function("frontend"):
+        with named_scope("frontend"):
             fm = frontend_batch_flat(buf.to(dev), nv.to(dev), fcfg, plain=plain)
         feat_map = fm.binary[0, : fcfg.num_feature_frames(pad)]      # [T', D]
         valid = fm.valid_frames[0]
@@ -275,14 +275,14 @@ def _detect_corpus_loop(
               if len(wav) >= fcfg.frame_length else 0)
         stats.add("frames", float(nf))
         if parts is not None:
-            with record_function("parts"):
+            with named_scope("parts"):
                 coded = code_parts(flat_to_channels(feat_map, fcfg.feature_freqs), parts,
                                    pcfg.loglik_threshold, pcfg.stride_time,
                                    pcfg.stride_freq)                 # [T'', F'', J]
             feat_map = coded.reshape(coded.shape[0], -1)
             valid = ((valid - pcfg.patch_time) // pcfg.stride_time + 1).clamp(min=0)
             nf = max((nf - pcfg.patch_time) // pcfg.stride_time + 1, 0)
-        with record_function("score"):
+        with named_scope("score"):
             if dcfg.exact_scores:
                 scores = sliding_scores_int(feat_map, w_int, c_int)
                 scores = scores.to(torch.float32) / float(dcfg.quant_scale)
@@ -296,13 +296,13 @@ def _detect_corpus_loop(
             scores = masked_scores(scores, valid, bank.template_length,
                                    time_major=fft_bank is not None)
         stats.add("windows_scored", float(nf) * bank.num_templates)
-        with record_function("nms"):
+        with named_scope("nms"):
             s, t, k = top_detections(
                 scores, dcfg.nms_radius, dcfg.effective_top_k(pad, fcfg.sample_rate),
                 time_major=fft_bank is not None,
             )
         if dcfg.dtw_rescore:
-            with record_function("dtw"):
+            with named_scope("dtw"):
                 s, k = dtw_rescore_detections(
                     feat_map, valid, s, t, w_rows, c_rows,
                     bank.template_length + cfg.dtw.band, cfg.dtw.band,

@@ -235,3 +235,33 @@ def test_fft_sliding_scores_copies_no_basis_from_the_host_per_call(problem, monk
     assert tfs._dft_basis(bank.nfft, torch.float32, x.device) is tfs._dft_basis(
         bank.nfft, torch.float32, x.device)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("mm_dtype", [None, torch.int8], ids=["f32", "int8"])
+@pytest.mark.parametrize("k", [1, 2, 3, 9])
+def test_zero_templates_to_the_kernels_multiple_change_no_score(k, mm_dtype):
+    """On the card the bank carries zero templates up to a multiple of 8
+    (the kernels' K; a two-class bank of one template each has K 2): the
+    scores of a bank padded by ``pad_templates`` and cut back by
+    ``num_templates`` are bitwise the unpadded bank's, and the reference's
+    on the same filters."""
+    import dataclasses
+
+    rng = np.random.default_rng(k)
+    w = torch.from_numpy(rng.standard_normal((k, L, 40)).astype(np.float32))
+    c = torch.from_numpy(rng.standard_normal(k).astype(np.float32))
+    x = torch.from_numpy(rng.random((2, 100, 40)) < 0.3)
+    bank = tfs.build_fft_bank(w, c, mm_dtype=mm_dtype)
+    wp, cp = tfs.pad_templates(w, c)
+    assert wp.shape[0] == -(-k // 8) * 8 and not wp[k:].any() and not cp[k:].any()
+    padded = dataclasses.replace(tfs.build_fft_bank(wp, cp, nfft=bank.nfft, mm_dtype=mm_dtype),
+                                 num_templates=k)
+    assert padded.k == wp.shape[0] and bank.k == k
+    for time_major in (False, True):
+        got = tfs.fft_sliding_scores(x, padded, time_major=time_major)
+        want = tfs.fft_sliding_scores(x, bank, time_major=time_major)
+        assert torch.equal(got, want)
+    if mm_dtype is None:
+        jbank = jfs.build_fft_bank(jnp.asarray(w.numpy()), jnp.asarray(c.numpy()))
+        _close(tfs.fft_sliding_scores(x, padded),
+               jfs.fft_sliding_scores(jnp.asarray(x.numpy()), jbank))

@@ -311,12 +311,57 @@ def test_cli_evaluate_artifacts(tmp_path, capsys, jbank4):
 
 
 @pytest.mark.parametrize("argv", [["evaluate", "--tensorboard", "tb"]])
-def test_cli_unported_flags_raise(tmp_path, jbank4, argv):
+def test_cli_unported_flags_raise(tmp_path, capsys, jbank4, argv):
+    """``evaluate --tensorboard DIR``, refused until the flag was ported,
+    now writes the reference's scalars under its tags: the events hold
+    ``--artifacts``' ROC and EER of the same run, and the reference CLI's
+    tags and ROC on the same bank (exact int32 scores: the same
+    detections)."""
+    from template_speech_recognition_tpu import checkpoint as jckpt
+    from template_speech_recognition_tpu import cli as jcli
     from template_speech_recognition_tpu_torch.cli import main
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main([argv[0], "--bank", _write_bank(tmp_path, jbank4), "--phone", "aa",
-              "--device", "cpu", *argv[1:]])
+    tags = {"eval/eer", "eval/best_tpr", "eval/audio_s_per_s", "roc/tpr", "roc/fp_per_sec"}
+    tb, art = str(tmp_path / argv[2]), str(tmp_path / "art")
+    assert main([argv[0], "--bank", _write_bank(tmp_path, jbank4), "--phone", "aa",
+                 "--device", "cpu", "--exact", "--artifacts", art, *argv[1:2], tb]) == 0
+    out = capsys.readouterr()
+    line = json.loads(out.out.strip().splitlines()[-1])
+    try:
+        from tensorboard.backend.event_processing.event_accumulator import (
+            EventAccumulator,
+        )
+    except ImportError:
+        assert "tensorboard unavailable" in out.err and "tensorboard" not in line
+        return
+    assert line["tensorboard"] == tb
+
+    def scalars(path):
+        ea = EventAccumulator(path)
+        ea.Reload()
+        assert set(ea.Tags()["scalars"]) == tags
+        return {t: [(e.step, e.value) for e in ea.Scalars(t)] for t in tags}
+
+    got = scalars(tb)
+    roc = np.load(os.path.join(art, "roc.npz"))
+    with open(os.path.join(art, "metrics.json")) as f:
+        counters = json.load(f)["counters"]
+    f32 = np.float32
+    assert len(roc["tpr"]) > 1
+    assert got["roc/tpr"] == [(i, f32(v)) for i, v in enumerate(roc["tpr"])]
+    assert got["roc/fp_per_sec"] == [(i, f32(v)) for i, v in enumerate(roc["fp_per_sec"])]
+    assert got["eval/eer"] == [(0, f32(roc["eer"]))]
+    assert got["eval/best_tpr"] == [(0, f32(roc["tpr"].max()))]
+    assert got["eval/audio_s_per_s"] == [(0, f32(counters["audio_s_per_s"]))]
+    odir = str(tmp_path / "bank_orbax")
+    jckpt.save_bank(odir, jbank4)
+    jtb = str(tmp_path / "jtb")
+    args = jcli.build_parser().parse_args(["evaluate", "--bank", odir, "--phone", "aa",
+                                           "--exact", "--tensorboard", jtb])
+    assert jcli.cmd_evaluate(args) == 0
+    want = scalars(jtb)
+    for tag in tags - {"eval/audio_s_per_s"}:
+        assert got[tag] == want[tag], tag
 
 
 @pytest.mark.parametrize("command", ["detect", "evaluate"])

@@ -551,32 +551,42 @@ def test_scan_fetch_group_is_bitwise_and_mixes_top_k(synth, tbank, monkeypatch):
 
 
 def test_refusals_name_a_roadmap_item():
-    """Every ``NotImplementedError`` of the port that names a ROADMAP
-    item as "Queue 1, item N, 'title'" names an item that exists and
-    carries that title."""
+    """Every ``NotImplementedError`` of the port that refuses unported
+    work names a ROADMAP item as "Queue 1, item N, 'title'", and that
+    item exists and carries that title.  The four refusals of
+    ``io/audio.py`` are the reference's own refusals of codings its
+    readers do not read (sample widths, compressed SPHERE), not
+    unported work, and cite nothing."""
     with open(os.path.join(REPO, "ROADMAP.md")) as f:
         roadmap = f.read().replace("`", "")
     q1 = roadmap[roadmap.index("### Queue 1"):roadmap.index("### Queue 2")]
     items = dict(re.findall(r"^(\d+)\. (.*?)(?=^\d+\. |\Z)", q1, re.M | re.S))
     cites = []
-    for dirpath, _dirs, files in os.walk(os.path.join(REPO, PKG)):
-        for name in files:
-            if name.endswith(".py"):
-                with open(os.path.join(dirpath, name)) as f:
-                    src = re.sub(r'"\s*\n\s*f?"', "", f.read())
-                cites += re.findall(r"ROADMAP\.md Queue 1, item (\d+), '([^']+)'", src)
-    # every refusal names its item (the count of the port's raises)
     n_raise = 0
     for dirpath, _dirs, files in os.walk(os.path.join(REPO, PKG)):
         for name in files:
-            if name.endswith(".py"):
-                with open(os.path.join(dirpath, name)) as f:
-                    n_raise += len(re.findall(r"raise NotImplementedError\(", f.read()))
-    assert len(cites) == n_raise >= 2, (cites, n_raise)
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, name)
+            with open(path) as f:
+                src = f.read()
+            n = len(re.findall(r"raise NotImplementedError\(", src))
+            if os.path.relpath(path, os.path.join(REPO, PKG)) == os.path.join("io", "audio.py"):
+                # the coding refusals: read_wav's width, read_sphere's
+                # coding and width, read_audio_info's coding
+                assert n == 4 and "ROADMAP" not in src
+                continue
+            n_raise += n
+            cites += re.findall(r"ROADMAP\.md Queue 1, item (\d+), '([^']+)'",
+                                re.sub(r'"\s*\n\s*f?"', "", src))
+    # every refusal of unported work names its item: item 7's `local_rows`
+    assert len(cites) == n_raise >= 1, (cites, n_raise)
     for num, title in cites:
         assert num in items and title.replace("`", "") in items[num], (num, title)
+        # TIMIT input (item 6) and utils/ with --tensorboard (item 8) are ported
+        assert num not in ("6", "8"), (num, title)
     with open(os.path.join(REPO, PKG, "cli.py")) as f:
-        assert not re.search(r"item (6|9|12)\b", f.read())
+        assert not re.search(r"item (6|8|9|12)\b", f.read())
 
 
 def test_config_json_round_trip():
