@@ -74,7 +74,7 @@
    TMA + wgmma bin matmul at m = 1, 63, 64, 65, 96 x D = 8, 40, 504 x
    K = 8, 136 x bins = 1, 3, the 4-D input, the block DFT at three
    utterances whose last window overruns T x D = 504, 40, 8 x nfft =
-   159, 39, 223, 319 (two launches bitwise equal; nfft 1023, D 500 and
+   159, 39, 223, 319 (two launches bitwise equal; B 0, D 500 and
    a misaligned base raise), the TMA + wgmma iDFT at
    2 bins = 40, 160 x hop = 32, 128, 224 x K = 8, 136, 1024 x m = 1,
    3, 192 and at hop 30, and misaligned base pointers that must raise)
@@ -170,7 +170,20 @@
    ``learn_parts``' wall, the coding rate, ``train_bank``'s wall with
    and without parts, checkpointed EM's ms and classification's
    segments a second on each route;
-8. runs the port's TIMIT input on a synthetic TIMIT tree that
+8. scans at template lengths past kernel 3's one-pass plans
+   (``shapes_phase``): random banks of K 1024 at L 48 and L 80 and of K
+   4096 at L 33 (nfft 239, 399 and 240: two resident passes of the
+   basis, four streamed, two resident); kernel 3 on the scan's map at
+   each (and alone at L 103, nfft 518, six streamed passes of 96
+   columns, and at L 256 of K 4096, nfft 1791), kernels 4 and 5 on its spectra and kernel 6 on them
+   quantized (rows tagged by ``shape``); ``detect_corpus_stream`` over
+   the 19 utterances with each bank, the default scan, at K 4096 also on
+   int8 spectra, at L 80 also DTW + int8, with the launch counts set to
+   0 just before each and read just after, each against its plain run
+   under ``check_scan_scores``' classes; the L 80 DTW scan's pair-LLR
+   operands and DTW tiles (the ring route) held to their plain versions;
+   the DTW kernel at L 300, band 6, raw and fused, bitwise;
+9. runs the port's TIMIT input on a synthetic TIMIT tree that
    ``io.fixtures.write_synthetic_timit`` writes (TIMIT's 1,680 TEST
    utterances; 1,024 TRAIN, cut from TIMIT's 4,620; 16 phones, ~3 s, an
    utterance): decodes it with the native and the Python readers
@@ -744,12 +757,17 @@ def dft_checks(torch, dev, k3, fs, say):
     utterances whose last window overruns T (a read into the next
     utterance's rows would show), T not a multiple of hop, D 504 / 40 /
     8 (a partial d tile, a lone one), nfft 159 / 39 / 223 / 319 (319: the
-    basis split into two passes); each within 2^-7 x max|ref| of the
-    plain version and two launches bitwise equal; shapes the kernel
-    cannot take raise."""
+    basis split into two passes), and L 45, 80 and 103 of a bank of 1024
+    (nfft 236, 399, 518: two resident passes, then the basis streamed
+    in four and six passes) and L 256 of a bank of 4096 (nfft 1791, 14
+    streamed passes); each within 2^-7 x max|ref| of the plain
+    version and two launches bitwise equal; shapes the kernel cannot take
+    raise."""
     rng = np.random.default_rng(SEED + 3)
     n = 0
-    for length, bank_k, t in ((32, 1024, 300), (8, 128, 250), (32, 4096, 500), (64, 1024, 700)):
+    for length, bank_k, t in ((32, 1024, 300), (8, 128, 250), (32, 4096, 500), (64, 1024, 700),
+                              (45, 1024, 500), (80, 1024, 800), (103, 1024, 1000),
+                              (256, 4096, 3400)):
         nfft = fs.pick_nfft(length, bank_k)
         hop = nfft - length + 1
         nblk = -(-(t - length + 1) // hop)
@@ -767,14 +785,11 @@ def dft_checks(torch, dev, k3, fs, say):
                       zip(got, k3.fft_block_dft(x, g, nfft, hop, nblk))),
                   f"fft_block_dft ({shape}): two launches differ")
             n += 1
-    cm, sm = fs._dft_mats(1023, torch.bfloat16, dev)
-    g_big = torch.cat([cm, -sm], dim=1).contiguous()
     cm, sm = fs._dft_mats(159, torch.bfloat16, dev)
     g = torch.cat([cm, -sm], dim=1).contiguous()
     buf = torch.zeros(2 * 300 * 512 + 8, dtype=torch.bfloat16, device=dev)
     for why, args in (
-        ("nfft 1023", (torch.zeros((2, 600, 64), dtype=torch.bfloat16, device=dev), g_big,
-                       1023, 512, 1)),
+        ("B 0", (torch.zeros((0, 300, 64), dtype=torch.bfloat16, device=dev), g, 159, 128, 3)),
         ("D 500", (torch.zeros((2, 300, 500), dtype=torch.bfloat16, device=dev), g, 159, 128,
                    3)),
         ("a base 2 bytes off", (buf[1 : 1 + 2 * 300 * 512].view(2, 300, 512), g, 159, 128, 3)),
@@ -785,8 +800,9 @@ def dft_checks(torch, dev, k3, fs, say):
         except ValueError:
             pass
     say(f"fft_block_dft: within 2^-7 x max|ref| at {n} ragged shapes (B 3, the last window "
-        f"past T; D 504/40/8; nfft 159/39/223/319, 319 in two passes), two launches bitwise; "
-        f"nfft 1023, D 500 and a misaligned base raise")
+        f"past T; D 504/40/8; nfft 159/39/223/319 and 236/399/518/1791 (L 45/80/103 of K "
+        f"1024, L 256 of K 4096), 236 and 319 in two passes, 399 and up streamed), two launches "
+        f"bitwise; B 0, D 500 and a misaligned base raise")
 
 
 # (B, P, T, F, valid, kind) of the radix select's small checks: F 39,
@@ -2703,6 +2719,254 @@ def sharded_worker(tmp: str) -> int:
     return 0
 
 
+# the template lengths whose pick_nfft needs kernel 3's multi-pass
+# plans, each scanned with a random bank of its own: (K, L, scans); K 1024
+# at L 48 (nfft 239) and L 80 (nfft 399, also DTW + int8: config 4), K
+# 4096 at L 33 (nfft 240, the 10K-class hop; also on int8 spectra:
+# config 5)
+SHAPE_BANKS = ((1024, 48, ("default",)), (1024, 80, ("default", "DTW + int8")),
+               (4096, 33, ("default", "int8")))
+# kernel 3 alone at two more lengths, the basis streamed: six passes of
+# 96 columns (L 103, nfft 518) and 14 of 128 (L 256 of K 4096, nfft 1791)
+SHAPE_DFT_ONLY = ((1024, 103), (4096, 256))
+DTW_LONG = (300, 6)        # the DTW kernel past L 256: (L, band)
+
+
+def shapes_phase(torch, say, dev, C, corpus, x_map, flips, record, rows, M):
+    """The FFT scan at template lengths past kernel 3's one-pass plans.
+    Kernel 3 on the scan's map at each ``SHAPE_BANKS`` and
+    ``SHAPE_DFT_ONLY`` nfft, kernels 4 and 5 on its spectra with the
+    case's bank, kernel 6 on them quantized where the case scans on int8
+    spectra (the row helpers' tolerances, a ``shape`` row each); then
+    ``detect_corpus_stream`` over the corpus with each bank: the default
+    scan (bf16 spectra), at K 4096 also on int8 spectra, at L 80 also DTW
+    + int8, each with the launch counts set to 0 just before and read
+    just after, against its plain run (``check_scan_scores``: 4e-3 of
+    max|score| on the sliding scans' matches, 1e-4 on the DTW scan's, a
+    window of L and L + band frames); the DTW scan's pair-LLR operands
+    and DTW tiles (L 80: the ring route) held to the plain versions and
+    timed; and the DTW kernel at ``DTW_LONG`` in raw and fused mode,
+    bitwise."""
+    fs, k3, k4, k5, kd, kp, _cuda = M.fs, M.k3, M.k4, M.k5, M.kd, M.kp, M._cuda
+    rng = np.random.default_rng(SEED + 7)
+    fcfg = C.FrontendConfig()
+    b_, t_pad, d_ = x_map.shape
+    t_phase = time.perf_counter()
+
+    def dft_row(k_, l_):
+        nfft_ = fs.pick_nfft(l_, k_)
+        hop_ = nfft_ - l_ + 1
+        nblk_ = -(-(t_pad - l_ + 1) // hop_)
+        g_ = fs._dft_basis(nfft_, torch.bfloat16, dev)
+        shape = f"L {l_}, K {k_}: B {b_}, T {t_pad}, D {d_}, nfft {nfft_}"
+        return M.record_dft(k3, x_map, g_, nfft_, hop_, nblk_, shape), shape
+
+    for k_, l_ in SHAPE_DFT_ONLY:
+        dft_row(k_, l_)
+    for k_, l_, scan_labels in SHAPE_BANKS:
+        tag = f"L {l_}, K {k_}"
+        templates = rng.uniform(0.01, 0.99, (k_, l_, fcfg.feature_freqs, 8)).astype(np.float32)
+        background = rng.uniform(0.01, 0.99, (fcfg.feature_freqs, 8)).astype(np.float32)
+        bank = M.bank_from_numpy(templates, background, [f"k{i}" for i in range(k_)], dev)
+        del templates
+        wf, cf = bank.llr()
+        fbank = fs.build_fft_bank(M.filters_to_flat(wf), cf, mm_dtype=torch.bfloat16)
+        nfft_ = fbank.nfft
+        hop_, bins_ = nfft_ - l_ + 1, nfft_ // 2 + 1
+        nblk_ = -(-(t_pad - l_ + 1) // hop_)
+        m_ = b_ * nblk_
+        (xr, xi), dft_shape = dft_row(k_, l_)
+        plan = k3.plan(b_, d_, nfft_, nblk_, bins_, k3._sm_count(str(dev)))
+        check(plan.passes > 1, f"{tag}: nfft {nfft_} takes one pass ({plan})")
+
+        # kernel 4 on the spectra, one bf16 step of max|ref|
+        ycat = k4.fft_binmm(xr, xi, fbank.w2)
+        ref4 = k4.fft_binmm_plain(xr, xi, fbank.w2)
+        err4, top4 = float((ycat.float() - ref4.float()).abs().max()), float(ref4.float().abs().max())
+        check(err4 <= 2.0 ** -7 * top4, f"fft_binmm ({tag}): {err4} > 2^-7 * {top4}")
+        check(bool(torch.equal(ycat, k4.fft_binmm(xr, xi, fbank.w2))),
+              f"fft_binmm ({tag}): two launches differ")
+        del ref4
+        xr3, xi3 = xr.reshape(bins_, m_, d_), xi.reshape(bins_, m_, d_)
+        x2 = torch.cat([torch.cat([xr3, xi3], 2), torch.cat([xi3, -xr3], 2)], 1)
+        binmm_shape = f"{tag}: bins {bins_}, m {m_}, D {d_}, K {fbank.k}"
+        record(
+            k4, err4, "2^-7 * max|ref|",
+            time_ms(torch, lambda: k4.fft_binmm(xr, xi, fbank.w2)),
+            time_ms(torch, lambda: k4.fft_binmm_plain(xr, xi, fbank.w2), reps=3, warm=1),
+            time_ms(torch, lambda: torch.bmm(x2, fbank.w2)),
+            2 * bins_ * m_ * d_ * 2 + fbank.w2.numel() * 2 + 2 * bins_ * m_ * fbank.k * 2,
+            2 * (2 * m_) * (2 * d_) * fbank.k * bins_, BF16_FLOPS, shape=binmm_shape,
+        )
+        del x2
+
+        # kernel 5: the iDFT of those products, 1e-5 of max|ref|
+        imat = fs._idft_basis(nfft_, hop_, torch.bfloat16, dev)
+        y2 = ycat.reshape(2 * bins_, m_ * fbank.k)
+        sc = k5.fft_idft(y2, imat, fbank.c, nblk_)
+        ref5 = k5.fft_idft_plain(y2, imat, fbank.c, nblk_)
+        err5, top5 = float((sc - ref5).abs().max()), float(ref5.abs().max())
+        check(err5 <= 1e-5 * top5, f"fft_idft ({tag}): {err5} > 1e-5 * {top5}")
+        del sc, ref5
+        imat_t = imat.t().contiguous()
+        idft_shape = f"{tag}: 2 bins {2 * bins_}, hop {hop_}, m {m_}, K {fbank.k}"
+        try:
+            torch.mm(imat_t, y2[:, :8], out_dtype=torch.float32)
+            lib5 = lambda: torch.mm(imat_t, y2, out_dtype=torch.float32)   # noqa: E731
+        except (TypeError, RuntimeError):
+            lib5 = lambda: torch.matmul(imat_t, y2)                         # noqa: E731
+        record(
+            k5, err5, "1e-5 * max|ref|",
+            time_ms(torch, lambda: k5.fft_idft(y2, imat, fbank.c, nblk_), loop=100),
+            time_ms(torch, lambda: k5.fft_idft_plain(y2, imat, fbank.c, nblk_), reps=3, warm=1),
+            time_ms(torch, lib5, loop=100),
+            y2.numel() * 2 + imat.numel() * 2 + fbank.k * 4 + m_ * hop_ * fbank.k * 4,
+            2 * (2 * bins_) * hop_ * m_ * fbank.k, BF16_FLOPS, shape=idft_shape,
+        )
+        del ycat, y2, imat_t
+
+        # kernel 6 on the same spectra quantized, where the case scans int8
+        int8_shape = f"{tag}: bins {bins_}, m {m_}, D {d_}, K {fbank.k}"
+        if any("int8" in label for label in scan_labels):
+            fbank8 = fs.build_fft_bank(M.filters_to_flat(wf), cf, mm_dtype=torch.int8)
+            xq_r, xq_i, sc8 = fs.quantize_block_spectra(xr, xi, fbank8.w2_scale)
+            M.record_int8(k4, fbank8, xq_r, xq_i, sc8, m_, int8_shape)
+            del fbank8, xq_r, xq_i, sc8
+        del xr, xi, fbank
+        torch.cuda.empty_cache()
+
+        # the scans
+        band = C.DTWConfig().band
+        int8_kernels = SCAN_KERNELS[:3] + ("fft_binmm_int8", "fft_idft")
+        scans = {"default": (dict(), SCAN_KERNELS, l_, 4e-3),
+                 "int8": (dict(int8_spectra=True), int8_kernels, l_, 4e-3),
+                 "DTW + int8": (dict(dtw_rescore=True, int8_spectra=True),
+                                int8_kernels + ("pair_llr", "banded_dtw"), l_ + band, 1e-4)}
+        for label in scan_labels:
+            dkw, expect, window, tol = scans[label]
+            cfg = C.PipelineConfig(detect=C.DetectConfig(batch_size=B, **dkw))
+            seen = {}
+            real = (M.dtw_mod.pair_llr, M.dtw_mod.banded_dtw_scores)
+
+            def keep_first(name, fn):
+                def run(*a, **kw):
+                    seen.setdefault(name, ([x.clone() if torch.is_tensor(x) else x for x in a],
+                                           dict(kw)))
+                    return fn(*a, **kw)
+                return run
+
+            M.dtw_mod.pair_llr = keep_first("pair_llr", real[0])
+            M.dtw_mod.banded_dtw_scores = keep_first("banded_dtw", real[1])
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+            try:
+                t0 = time.perf_counter()
+                res = M.detect_corpus_stream(corpus, bank, cfg, target_phone="aa")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                M.dtw_mod.pair_llr, M.dtw_mod.banded_dtw_scores = real
+            counts = _cuda.launch_counts()
+            for name in expect:
+                check(counts.get(name, 0) > 0, f"{name} was not launched by the {tag} {label} "
+                                               f"scan")
+            if "int8_spectra" in dkw:
+                check(counts.get("fft_binmm", 0) == 0, f"the {tag} {label} scan launched the "
+                                                       f"bf16 bin matmul")
+                take_launches(rows, ("fft_binmm_int8",), counts, shape=int8_shape)
+            else:
+                take_launches(rows, ("fft_block_dft",), counts, shape=dft_shape)
+                take_launches(rows, ("fft_binmm",), counts, shape=binmm_shape)
+                take_launches(rows, ("fft_idft",), counts, shape=idft_shape)
+            ctr = res.counters
+            say(f"{tag} {label} scan: {ctr['utterances']:.0f} utterances, "
+                f"{ctr['audio_seconds']:.1f} audio-s, one pass, no warm-up: "
+                f"{ctr['audio_s_per_s']:.1f} audio-s/s (with the bank build {wall:.3f} s); "
+                f"launches {counts}")
+            ref = M.detect_corpus_stream(corpus, bank, cfg, target_phone="aa", plain=True)
+            check_scan_scores(res.detections, ref.detections, flips, window, tol,
+                              f"{tag} {label} scan", say)
+            del res, ref
+            if "pair_llr" in seen:
+                dtw_shape = f"{tag} DTW + int8 scan's first batch"
+                a_p, _kw = seen["pair_llr"]
+                got_p, want_p = kp.pair_llr(*a_p), kp.pair_llr_plain(*a_p)
+                err_p, top_p = float((got_p - want_p).abs().max()), float(want_p.abs().max())
+                check(err_p <= 1e-5 * top_p, f"pair_llr ({dtw_shape}): {err_p} > 1e-5 * {top_p}")
+                fmap_, w16_, rowstart_, ids_, m_llr = a_p
+                n_pairs, n_map = rowstart_.numel(), fmap_.shape[0] * fmap_.shape[1]
+                # least bytes as for the scan's pairs: the distinct map rows
+                # the windows cover, the distinct filters, the tiles
+                rows_g = rowstart_.long()[:, None] + torch.arange(m_llr, device=dev)
+                covered = torch.zeros(n_map, dtype=torch.bool, device=dev)
+                covered[rows_g[rows_g < n_map]] = True
+                seg_g = fmap_.reshape(n_map, -1)[rows_g.clamp(max=n_map - 1)].to(torch.bfloat16)
+                wk_g = w16_[ids_.long()]
+                record(
+                    kp, err_p, "1e-5 * max|ref|",
+                    time_ms(torch, lambda: kp.pair_llr(*a_p), loop=100),
+                    time_ms(torch, lambda: kp.pair_llr_plain(*a_p)),
+                    time_ms(torch, lambda: torch.bmm(wk_g, seg_g.transpose(1, 2)), loop=100),
+                    int(covered.sum()) * d_ + int(torch.unique(ids_).numel()) * l_ * d_ * 2
+                    + n_pairs * 8 + got_p.numel() * 4,
+                    2 * n_pairs * l_ * m_llr * d_, BF16_FLOPS,
+                    shape=f"{dtw_shape}: {n_pairs} pairs, L {l_}, m {m_llr}")
+                take_launches(rows, ("pair_llr",), counts, shape=rows[-1]["shape"])
+                a_d, kw_d = seen["banded_dtw"]
+                llr_d, lens_d, c_d, band_d = a_d
+                check(not kd.whole_tile(llr_d[:, None], band_d),
+                      f"banded_dtw ({dtw_shape}): the tiles fit the whole-tile mode")
+                got_d = kd.banded_dtw_scores(*a_d, **kw_d)
+                check_scores(torch, got_d, kd.banded_dtw_scores_plain(*a_d, **kw_d),
+                             f"banded_dtw ({dtw_shape})")
+                check(bool(torch.equal(got_d, kd.banded_dtw_scores(*a_d, **kw_d))),
+                      f"banded_dtw ({dtw_shape}): two launches differ")
+                cells = band_cells(torch, l_, llr_d.shape[-1], lens_d, band_d)
+                record(
+                    kd, 0.0, "bitwise on finite scores, -inf alike",
+                    time_ms(torch, lambda: kd.banded_dtw_scores(*a_d, **kw_d), loop=100),
+                    time_ms(torch, lambda: kd.banded_dtw_scores_plain(*a_d, **kw_d)), None,
+                    cells * 4 + int(torch.unique(kw_d["cid"]).numel()) * l_ * 4
+                    + llr_d.shape[0] * 12,
+                    5 * cells, FP32_FLOPS,
+                    shape=f"{dtw_shape}: {llr_d.shape[0]} pairs, L {l_}, m {llr_d.shape[-1]}, "
+                          f"band {band_d}, ring route")
+                take_launches(rows, ("banded_dtw",), counts, shape=rows[-1]["shape"])
+                del seen, a_p, a_d, got_p, want_p, got_d, seg_g, wk_g, covered
+        del bank, wf, cf
+        torch.cuda.empty_cache()
+
+    # the DTW kernel past L 256: raw (cost in, terminals out) and fused
+    # (LLR in, scores out), ring route, bitwise
+    l_long, band = DTW_LONG
+    m_long, n_long = l_long + band, B * 123
+    cost = torch.from_numpy(
+        (rng.standard_normal((n_long, l_long, m_long)) + 2.0).astype(np.float32)).to(dev)
+    lens = torch.from_numpy(rng.integers((l_long + band) // 2, m_long + 1,
+                                         n_long).astype(np.int32)).to(dev)
+    ids = torch.from_numpy(rng.integers(0, K, n_long).astype(np.int32)).to(dev)
+    ctab = torch.randn(K, l_long, device=dev)
+    check_terminals(torch, kd.banded_dtw(cost, lens, band), kd.banded_dtw_plain(cost, lens, band),
+                    f"banded_dtw raw (L {l_long})")
+    args = (-cost, lens, ctab, band, ids)
+    check_scores(torch, kd.banded_dtw_scores(*args), kd.banded_dtw_scores_plain(*args),
+                 f"banded_dtw fused (L {l_long})")
+    cells = band_cells(torch, l_long, m_long, lens, band)
+    long_shape = f"L {l_long}, band {band}: {n_long} pairs, m {m_long}, ring route"
+    record(
+        kd, 0.0, "bitwise on finite scores, -inf alike",
+        time_ms(torch, lambda: kd.banded_dtw_scores(*args), loop=100),
+        time_ms(torch, lambda: kd.banded_dtw_scores_plain(*args), reps=3, warm=1), None,
+        cells * 4 + int(torch.unique(ids).numel()) * l_long * 4 + n_long * 12,
+        5 * cells, FP32_FLOPS, shape=f"fused, {long_shape}")
+    raw_ms = time_ms(torch, lambda: kd.banded_dtw(cost, lens, band), loop=100)
+    say(f"banded_dtw raw at {long_shape}: bitwise; {raw_ms:.4f} ms (loops of 100); the chain is "
+        f"up to {l_long + m_long - 1} diagonals")
+    del cost, args, ctab
+    torch.cuda.empty_cache()
+    say(f"shapes phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2835,8 +3099,8 @@ def main() -> int:
         the padded block spectra): bitwise against its plain version,
         two launches bitwise equal; timed over loops of 100 launches;
         no PyTorch call computes a batched int8 x int8 -> int32 product."""
-        bins_, d_ = xq_r.shape[0], xq_r.shape[-1]
-        check(tuple(fbank8.w2_kmajor.shape) == (bins_, 2, K, k4.int8_row_width(d_))
+        bins_, d_, k_ = xq_r.shape[0], xq_r.shape[-1], fbank8.k
+        check(tuple(fbank8.w2_kmajor.shape) == (bins_, 2, k_, k4.int8_row_width(d_))
               and xq_r.stride(-2) == k4.int8_row_width(d_),
               f"int8 operands: w2_kmajor {tuple(fbank8.w2_kmajor.shape)}, xr strides "
               f"{xq_r.stride()}")
@@ -2852,8 +3116,8 @@ def main() -> int:
             time_ms(torch, run, loop=100),
             time_ms(torch, lambda: k4.fft_binmm_int8_plain(xq_r, xq_i, fbank8.w2, sc8)),
             None,
-            2 * bins_ * m_ * d_ + fbank8.w2.numel() + sc8.numel() * 4 + 2 * bins_ * m_ * K * 2,
-            2 * (2 * m_) * (2 * d_) * K * bins_, INT8_OPS, shape=shape,
+            2 * bins_ * m_ * d_ + fbank8.w2.numel() + sc8.numel() * 4 + 2 * bins_ * m_ * k_ * 2,
+            2 * (2 * m_) * (2 * d_) * k_ * bins_, INT8_OPS, shape=shape,
         )
         share = rows[-1]["bound_ms"] / rows[-1]["ms"]
         say(f"fft_binmm_int8 ({shape}): one launch between the events (with the wrapper's "
@@ -3619,6 +3883,15 @@ def main() -> int:
     em_input = training_phase(torch, dev, C, say, corpus, scan_cfg, flips["default"], record,
                               rows)
     say(f"training phase: {time.perf_counter() - t0:.1f} s")
+
+    # ---- the FFT scan at template lengths past one-pass plans ----------
+    mods = SimpleNamespace(fs=fs, k3=k3, k4=k4, k5=k5, kd=kd, kp=kp, _cuda=_cuda,
+                           bank_from_numpy=bank_from_numpy, filters_to_flat=filters_to_flat,
+                           detect_corpus_stream=detect_corpus_stream, dtw_mod=dtw_mod,
+                           record_int8=record_int8, record_dft=record_dft)
+    shapes_phase(torch, say, dev, C, corpus, flat.reshape(B, t_pad, d).to(torch.bfloat16),
+                 flips["default"], record, rows, mods)
+    torch.cuda.empty_cache()
 
     # ---- the sharded scan and EM: parallel/ on torch.distributed -------
     t0 = time.perf_counter()

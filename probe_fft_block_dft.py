@@ -19,7 +19,9 @@ or those named):
   each);
 * ``run4``: runs of four windows;
 * ``wgs1``: 64 d columns a block (one consumer warpgroup), the runs the
-  wrapper's rule gives them.
+  wrapper's rule gives them;
+* ``stream``: the basis streamed with the window in chunks of 128 tau
+  rows wherever Kp > 128 (``plan(..., stream=True)``).
 
 ``no_store`` and ``no_x`` compute garbage and are not checked.  Every
 other variant is held within one bf16 step (2^-7 x max|ref|) of
@@ -27,8 +29,11 @@ other variant is held within one bf16 step (2^-7 x max|ref|) of
 window overruns T, D 504 and 40, nfft 159, 39, 223 and 319) and at the
 scan's shape (B 8, T 3072, D 2048, nfft 159, hop 128, 24 windows),
 where two launches must be bitwise equal.  Then each is timed with
-``chip_smoke.time_ms`` over loops of 100 launches at the scan's shape
-and at the log-mel D = 504, ``as_is`` first and last.  Inputs are
+``chip_smoke.time_ms`` over loops of 100 launches at the scan's shape,
+at the log-mel D = 504, and at the nfft of longer templates (B 8, T
+3072, D 2048: L 48, 80 and 103 of a bank of 1024, nfft 239, 399 and
+518; L 33 and 64 of a bank of 4096, nfft 240 and 447), checked there
+too, ``as_is`` first and last.  Inputs are
 random binary maps at 0.15 density from seed 0.  Each variant runs in
 a process of its own under a time limit, so a variant that hangs is
 reported, not waited for.  Prints the card's name and power limit, one
@@ -58,7 +63,10 @@ VARIANTS = {
     "run1": ("as_is", {"run": 1}),
     "run4": ("as_is", {"run": 4}),
     "wgs1": ("as_is", {"wgs": 1}),
+    "stream": ("as_is", {"stream": True}),
 }
+# (L, bank K) of the longer templates: nfft = pick_nfft(L, K)
+LONG = ((48, 1024), (80, 1024), (103, 1024), (33, 4096), (64, 4096))
 UNCHECKED = ("no_store", "no_x")
 ROOT = Path(__file__).resolve().parent
 
@@ -97,7 +105,7 @@ def run_variant(name: str, so: str) -> dict:
     over = VARIANTS[name][1]
     lib = ctypes.CDLL(so)
     fn = lib.tsr_fft_block_dft
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -122,7 +130,7 @@ def run_variant(name: str, so: str) -> dict:
         def call():
             err = fn(x.data_ptr(), gt.data_ptr(), xr.data_ptr(), xi.data_ptr(), b, t, d, hop,
                      nblk, bins, p.kp, p.kb, p.bp, p.n, p.passes, p.wgs, p.stages, p.run,
-                     torch.cuda.current_stream().cuda_stream)
+                     p.kc, torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"{name}: CUDA error {err}")
             return xr, xi
@@ -154,6 +162,16 @@ def run_variant(name: str, so: str) -> dict:
             call, _ = caller(*ops)
         row[f"d{d}_plan"] = str(caller(*ops)[1])
         row[f"d{d}_ms"] = time_ms(torch, call, loop=100)
+        del ops, call
+        torch.cuda.empty_cache()
+    for length, bank_k in LONG:
+        ops = operands(B, T, 2048, length, bank_k, SEED)
+        tag = f"L{length}_k{bank_k}_nfft{ops[2]}"
+        if name not in UNCHECKED:
+            close(*ops, tag)
+        call, p = caller(*ops)
+        row[f"{tag}_plan"] = str(p)
+        row[f"{tag}_ms"] = time_ms(torch, call, loop=100)
         del ops, call
         torch.cuda.empty_cache()
     return row

@@ -64,8 +64,13 @@
 //   word a lane a step, and makes every copy 4 bytes (a 16-byte run of a
 //   row spans four diagonals): one request a cell, which is why the
 //   whole tile goes by one copy where it can.
-// The fused mode's c row lands by cp.async with the first chunk or the
-// tile, so a step reads shared memory only.
+// The fused mode's c words: where L <= C_ROW_LENGTH (and always with a
+// whole tile), the pair's c row lands by cp.async with the first chunk
+// or the tile; past it (the ring's CCHUNK mode), each chunk stages
+// beside its cells the pair's c rows [lo, lo + WP + CK) (lo the chunk's
+// first diagonal's first in-band row: every in-band row of the chunk's
+// CK diagonals lies in that span), so shared memory does not grow with
+// L.  Either way a step reads shared memory only.
 //
 // Arithmetic: one __fadd_rn for the prologue, an exact negation, exact
 // fminf, one __fadd_rn and an IEEE division for the score, in the plain
@@ -106,6 +111,11 @@ constexpr int STAGES = DTW_STAGES;   // chunks in flight a warp
 constexpr int UNROLL = DTW_UNROLL;   // the chain's loop, unrolled
 constexpr int STAGE_WORDS = 1024;    // (32/R) diagonals x 32R positions
 constexpr int TILE_WORDS = 6144;     // whole-tile mode: the warp's tiles, at most
+// the ring's whole c rows: up to L = 256, 32 rows of 256 words a warp
+// at most; past it, c rows a chunk: PPW pairs x (WP + CK) words, at
+// most 16 x (2 + 32) (G 2) or 512 + 2 (R 16)
+constexpr int C_ROW_LENGTH = 256;
+constexpr int C_STAGE_WORDS = 544;
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -151,16 +161,23 @@ struct Pair {
   int mm1, den, bw;    // max(seg_len-1, 1), lm1 + mm1, band*lm1
 };
 
+// lo(k): the first in-band row of diagonal k (the closed form of the
+// reference's band_ilo), for stage_diagonal and the ring's c rows
+__device__ __forceinline__ int first_row(const Pair& p, int k, int band, int lm1) {
+  const int num = (k - band) * lm1;
+  const int lo = num > 0 ? (num + p.den - 1) / p.den : 0;
+  return max(lo, k - (p.jl - 1));
+}
+
 // Stage diagonal k's in-band cells, positions w0, w0+ws, ..., into
 // dst[w] (the closed form of the reference's band_ilo; [lo, hi] is
 // exactly the set of rows that pass the integer band and range tests).
-__device__ __forceinline__ void stage_diagonal(const Pair& p, float* dst, int k, int w0, int ws,
-                                               int L, int lm1, int band, long long s_i,
-                                               long long s_j) {
-  if (k > p.kmax) return;
-  const int num = (k - band) * lm1;
-  int lo = num > 0 ? (num + p.den - 1) / p.den : 0;
-  lo = max(lo, k - (p.jl - 1));
+// Returns lo (-1 past the pair's terminal diagonal).
+__device__ __forceinline__ int stage_diagonal(const Pair& p, float* dst, int k, int w0, int ws,
+                                              int L, int lm1, int band, long long s_i,
+                                              long long s_j) {
+  if (k > p.kmax) return -1;
+  const int lo = first_row(p, k, band, lm1);
   const int hi = min(min(L - 1, k), (k + band) * lm1 / p.den);
   for (int w = w0; lo + w <= hi; w += ws) {
     const int i = lo + w;
@@ -170,6 +187,7 @@ __device__ __forceinline__ void stage_diagonal(const Pair& p, float* dst, int k,
     cp_async4(dst + w, p.src + i * s_i + (long long)(k - i) * s_j);
 #endif
   }
+  return lo;
 }
 
 // The window's state on diagonal k, the same in every lane of a pair:
@@ -237,7 +255,8 @@ __device__ __forceinline__ int advance(Win& w, const Lanes<R>& c, int lm1) {
 template <int R, bool FUSED, bool TILE>
 __device__ __forceinline__ void load_at(float (&x)[R], float (&cr)[R], bool (&ok)[R],
                                         const Win& w, const Pair& p, const Lanes<R>& c,
-                                        const float* sb, const float* crow, int kk, int lane) {
+                                        const float* sb, const float* crow, int kk, int lane,
+                                        int clo) {
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     ok[r] = w.ilo < c.l_lim[r] && (unsigned)(w.j0 - c.pos[r]) < (unsigned)p.jl &&
@@ -248,7 +267,9 @@ __device__ __forceinline__ void load_at(float (&x)[R], float (&cr)[R], bool (&ok
 #ifdef DTW_NO_C
     if (FUSED) cr[r] = 0.f;
 #else
-    if (FUSED) cr[r] = crow[ok[r] ? w.ilo + c.pos[r] : 0];
+    // crow holds rows [clo, ...): the chunk's span (ring) or the whole
+    // row (tile, clo 0)
+    if (FUSED) cr[r] = crow[ok[r] ? w.ilo + c.pos[r] - clo : 0];
 #endif
   }
 }
@@ -264,9 +285,12 @@ __device__ __forceinline__ void cost_of(float (&c)[R], const float (&x)[R], cons
 }
 
 // Shared memory a warp, in words, 16-byte aligned: the ring of chunks or
-// (whole-tile mode) its pairs' tiles, then (fused mode) their c rows.
-__host__ __device__ __forceinline__ int warp_words(bool tile, bool fused, int ppw, int L, int M) {
+// (whole-tile mode) its pairs' tiles, then (fused mode) their c rows, or
+// (CCHUNK) the ring's c rows a chunk.
+__host__ __device__ __forceinline__ int warp_words(bool tile, bool fused, bool cchunk, int ppw,
+                                                   int L, int M) {
   const int data = tile ? ppw * L * M : STAGES * STAGE_WORDS;
+  if (cchunk) return data + STAGES * C_STAGE_WORDS;
   return data + (fused ? (ppw * L + 3) / 4 * 4 : 0);
 }
 
@@ -304,7 +328,7 @@ __device__ __forceinline__ void shuffles(float (&up)[R], float (&lq)[R], const f
   }
 }
 
-template <int R, bool FUSED, bool TILE>
+template <int R, bool FUSED, bool TILE, bool CCHUNK>
 __global__ void __launch_bounds__(WARPS * 32)
 banded_dtw_kernel(const float* __restrict__ llr, const float* __restrict__ c_tab,
                   const int* __restrict__ cid, const int* __restrict__ seg_lens,
@@ -322,9 +346,14 @@ banded_dtw_kernel(const float* __restrict__ llr, const float* __restrict__ c_tab
   const int n = (blockIdx.x * WARPS + warp) * ppw + slot;
   const bool active = n < n_pairs;
   const int lm1 = max(L - 1, 1);
-  const int words = warp_words(TILE, FUSED, ppw, L, M);
+  const int words = warp_words(TILE, FUSED, CCHUNK, ppw, L, M);
   float* ring = smem + warp * words;          // the ring, or the warp's tiles
+  // the c rows: the pair's whole row after the ring or the tiles, or
+  // (CCHUNK) the ring's c stages (C_STAGE_WORDS each: a span of cspan
+  // rows a pair slot)
+  const int cspan = wp + CK;
   float* crow = ring + (TILE ? ppw * L * M : STAGES * STAGE_WORDS) + slot * L;
+  float* cring = ring + STAGES * STAGE_WORDS + slot * cspan;
   float* tile = ring + slot * L * M;
 
   Pair p;
@@ -352,18 +381,31 @@ banded_dtw_kernel(const float* __restrict__ llr, const float* __restrict__ c_tab
     auto stage = [&](int ch) {   // the ring: chunk ch's copies, one commit group
       if (ch < nch) {
         float* base = ring + (ch % STAGES) * STAGE_WORDS + slot * wp;
+        int lo = -1;              // lane t = 0: the chunk's first diagonal's
         if (R == 1) {
-          for (int kk = t; kk < CK; kk += nl)
-            stage_diagonal(p, base + kk * 32 * R, ch * CK + kk, 0, 1, L, lm1, band, s_i, s_j);
+          for (int kk = t; kk < CK; kk += nl) {
+            const int l = stage_diagonal(p, base + kk * 32 * R, ch * CK + kk, 0, 1, L, lm1,
+                                         band, s_i, s_j);
+            if (CCHUNK && kk == t) lo = l;
+          }
         } else {
           const int kk = t / R;
-          stage_diagonal(p, base + kk * 32 * R, ch * CK + kk, t % R, R, L, lm1, band, s_i, s_j);
+          lo = stage_diagonal(p, base + kk * 32 * R, ch * CK + kk, t % R, R, L, lm1, band,
+                              s_i, s_j);
+        }
+        if (CCHUNK) {
+          // the c rows this chunk's in-band cells read, from the first
+          // in-band row of its first diagonal (-1: the pair is done)
+          lo = __shfl_sync(FULL, lo, 0, nl);
+          float* cb = cring + (ch % STAGES) * C_STAGE_WORDS;
+          for (int u = t; lo >= 0 && u < cspan && lo + u < L; u += nl)
+            cp_async4(cb + u, c_tab + (long long)row * L + lo + u);
         }
       }
       cp_async_commit();
     };
     // the pair's c row lands with its first chunk (or its tile)
-    if (FUSED && p.kmax >= 0)
+    if (FUSED && !CCHUNK && p.kmax >= 0)
       for (int i = t; i < L; i += nl) cp_async4(crow + i, c_tab + (long long)row * L + i);
     if (TILE) {
       // the pairs' whole tiles, one bulk copy each, on the warp's mbarrier
@@ -406,13 +448,17 @@ banded_dtw_kernel(const float* __restrict__ llr, const float* __restrict__ c_tab
         __syncwarp();
       }
       const float* sb = TILE ? tile : ring + (ch % STAGES) * STAGE_WORDS;
+      const float* cb = CCHUNK ? cring + (ch % STAGES) * C_STAGE_WORDS : crow;
+      // CCHUNK: the chunk's c rows start at its first row, ilo there (the
+      // closed form the staging used, as the window steps it)
+      const int clo = CCHUNK ? win.ilo : 0;
 #ifdef DTW_STAGE_ONLY
       term = fminf(term, sb[lane]);
       __syncwarp();
       continue;
 #endif
       const int k0 = ch * CK, kn = min(CK, kend - k0 + 1);
-      load_at<R, FUSED, TILE>(x, cr, ok, win, p, lc, sb, crow, 0, lane);
+      load_at<R, FUSED, TILE>(x, cr, ok, win, p, lc, sb, cb, 0, lane, clo);
 #pragma unroll UNROLL
       for (int kk = 0; kk < kn; ++kk) {
         // the chain: the shuffles go first, then the work of the next
@@ -423,7 +469,7 @@ banded_dtw_kernel(const float* __restrict__ llr, const float* __restrict__ c_tab
         // the next diagonal's window and loads, used a step later (a
         // chunk's last step loads a row it does not use)
         d = advance<R>(win, lc, lm1);
-        load_at<R, FUSED, TILE>(x, cr, ok, win, p, lc, sb, crow, min(kk + 1, CK - 1), lane);
+        load_at<R, FUSED, TILE>(x, cr, ok, win, p, lc, sb, cb, min(kk + 1, CK - 1), lane, clo);
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           const float v = fminf(__fadd_rn(c[r], fminf(up[r], lq[r])), UNREACHABLE);
@@ -447,20 +493,22 @@ banded_dtw_kernel(const float* __restrict__ llr, const float* __restrict__ c_tab
   }
 }
 
-template <int R, bool FUSED, bool TILE>
+template <int R, bool FUSED, bool TILE, bool CCHUNK>
 int launch_one(const float* llr, const float* c_tab, const int* cid, const int* lens, float* out,
                long long s_b, long long s_q, long long s_i, long long s_j, int n_pairs,
                int inner, int L, int M, int n_rows, int band, int G, cudaStream_t stream) {
   const int ppw = R == 1 ? 32 / G : 1;
   const int blocks = (n_pairs + WARPS * ppw - 1) / (WARPS * ppw);
-  const size_t bytes = sizeof(float) * WARPS * warp_words(TILE, FUSED, ppw, L, M);
-  auto kernel = banded_dtw_kernel<R, FUSED, TILE>;
+  const size_t bytes = sizeof(float) * WARPS * warp_words(TILE, FUSED, CCHUNK, ppw, L, M);
+  auto kernel = banded_dtw_kernel<R, FUSED, TILE, CCHUNK>;
   // the most any launch of this kernel takes: TILE_WORDS of tiles or the
-  // ring, and 32 c rows of 256 a warp
+  // ring, and 32 c rows of 256 a warp (a warp's tiles hold fewer) or
+  // (CCHUNK) the ring's c stages
   static const cudaError_t opt_in = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)(sizeof(float) * WARPS *
-            ((TILE ? TILE_WORDS : STAGES * STAGE_WORDS) + (FUSED ? 32 * 256 : 0))));
+            ((TILE ? TILE_WORDS : STAGES * STAGE_WORDS) +
+             (CCHUNK ? STAGES * C_STAGE_WORDS : FUSED ? 32 * C_ROW_LENGTH : 0))));
   if (opt_in != cudaSuccess) return opt_in;
   kernel<<<blocks, WARPS * 32, bytes, stream>>>(llr, c_tab, cid, lens, out, s_b, s_q, s_i, s_j,
                                                 n_pairs, inner, L, M, n_rows, band, G);
@@ -472,15 +520,16 @@ int launch(bool fused, bool tile, const float* llr, const float* c_tab, const in
            const int* lens, float* out, long long s_b, long long s_q, long long s_i,
            long long s_j, int n_pairs, int inner, int L, int M, int n_rows, int band, int G,
            cudaStream_t stream) {
-#define DTW_LAUNCH(F, T)                                                                    \
-  return launch_one<R, F, T>(llr, c_tab, cid, lens, out, s_b, s_q, s_i, s_j, n_pairs, inner, \
-                             L, M, n_rows, band, G, stream)
+#define DTW_LAUNCH(F, T, C)                                                                  \
+  return launch_one<R, F, T, C>(llr, c_tab, cid, lens, out, s_b, s_q, s_i, s_j, n_pairs,     \
+                                inner, L, M, n_rows, band, G, stream)
   if (R == 1 && tile) {
-    if (fused) DTW_LAUNCH(true, R == 1);
-    DTW_LAUNCH(false, R == 1);
+    if (fused) DTW_LAUNCH(true, R == 1, false);
+    DTW_LAUNCH(false, R == 1, false);
   }
-  if (fused) DTW_LAUNCH(true, false);
-  DTW_LAUNCH(false, false);
+  if (fused && L > C_ROW_LENGTH) DTW_LAUNCH(true, false, true);
+  if (fused) DTW_LAUNCH(true, false, false);
+  DTW_LAUNCH(false, false, false);
 #undef DTW_LAUNCH
 }
 
@@ -494,17 +543,19 @@ extern "C" const char* tsr_cuda_error_string(int err) {
 // (f32, strides in elements); seg_lens [n_pairs / inner] int32 (by b);
 // c_tab [n_rows, L] f32 or NULL (raw mode: llr is the cost, out the
 // terminals); cid [n_pairs] int32 in [0, n_rows), or NULL for n % n_rows;
-// out [n_pairs] f32.  1 <= L <= 256; band * max(L-1, 1) and
+// out [n_pairs] f32.  L >= 1 and min(2*band+1, L) <= 511 (R <= 16
+// registers a lane); band * max(L-1, 1) and
 // (L + M + band) * max(L-1, 1) must fit int32 (the wrapper clamps band to
 // L + M).
 extern "C" int tsr_banded_dtw(const void* llr, const void* c_tab, const void* cid,
                               const void* seg_lens, void* out, long long s_b, long long s_q,
                               long long s_i, long long s_j, int n_pairs, int inner, int L,
                               int M, int n_rows, int band, void* stream) {
-  if (L < 1 || L > 256 || M < 1 || band < 0 || inner < 1 || (c_tab && n_rows < 1))
+  if (L < 1 || M < 1 || band < 0 || inner < 1 || (c_tab && n_rows < 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_pairs == 0) return 0;
   band = min(band, L + M);
+  if (min(2 * band + 1, L) > 511) return static_cast<int>(cudaErrorInvalidValue);
   // the window: W = min(2*band+1, L) rows and a spare position; G lanes a
   // pair (a power of two), past 32 positions R registers a lane
   const int w = min(2 * band + 1, L) + 1;

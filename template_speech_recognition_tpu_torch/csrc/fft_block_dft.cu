@@ -11,49 +11,69 @@
 // x [B, T, D] read as zero past its T rows; f < bins goes to xr, the
 // rest to xi, both [bins, B, nblk, D] bf16; f32 sums.
 //
-// What bounds it on the H100: bytes.  At the scan's shape (B 8, T 3072,
-// D 2048, nfft 159, hop 128, nblk 24) the map in once and the spectra
-// out once (101 + 126 MB) take 0.068 ms at 3.35 TB/s; the 20 GFLOP take
-// 0.02 ms on the bf16 tensor cores.  So the kernel reads x about once
-// and keeps loads and stores in flight.
+// What bounds it on the H100: bytes at the scan's shape, operations at
+// long templates.  At the scan's shape (B 8, T 3072, D 2048, nfft 159,
+// hop 128, nblk 24) the map in once and the spectra out once (101 + 126
+// MB) take 0.068 ms at 3.35 TB/s; the 20 GFLOP take 0.02 ms on the bf16
+// tensor cores.  So the kernel reads x about once and keeps loads and
+// stores in flight.  At L 80 (nfft 399, hop 320, nblk 10): 101 + 131 MB,
+// 0.069 ms, and 52 GFLOP, 0.053 ms.  At L 256 with K >= 4096 (nfft 1791,
+// hop 1536, nblk 2): 101 + 59 MB, 0.048 ms, and 210 GFLOP, 0.21 ms.
 //
 // Design.  Orientation M = d, N = basis columns, K = tau: a consumer
 // warpgroup owns 64 d columns of one window and runs wgmma.m64nNk16.
 // The basis comes from the wrapper transposed and padded, gt [2 BP, Kp]
-// K-major (Kp = nfft rounded up to 16, BP = bins rounded up to 16, or
-// to 32 when 2 BP > 256; the padding is exact zeros), and stays in
-// shared memory for the whole block as ceil(Kp / 64) 128-byte-swizzled
-// slabs of N rows.  N = 2 BP when that is at most 256 (xr's rows, then
-// xi's), else the basis is split into two passes of N = BP, xr's and
-// xi's, each a block of its own (so only half of the basis is resident).
+// K-major (Kp = nfft rounded up to 16; the padding is exact zeros).  A
+// block computes one pass: N basis columns from row pass*N of gt.  One
+// pass holds all 2 BP columns (xr's rows, then xi's) where 2 BP <= 256
+// and that fits; else each half takes BP / N passes of N <= 256 columns,
+// so a pass holds a slice of xr's bins or of xi's, each a block of its
+// own.
 //
-// x comes by TMA through a 3-D map {D, T, B} in {64, Kb, 1} boxes (Kb
-// = Kp, or Kp / 2 past 256 rows), MN-major A for wgmma: a window is the
-// box at (d0, i*hop, b), and TMA's zero fill past T completes the tail
-// windows of each utterance (a 2-D map over [B*T, D] would read the
-// next utterance's first rows instead); rows nfft..Kp-1 of a window are
-// real frames times zero basis columns.  A block walks a run of
-// consecutive windows of one (b, 64 or 128 d) tile through a ring of
-// whole-window stages, so the L - 1 rows two windows share come from
-// L2; the run length is set by the wrapper so the blocks fill the card
-// (one run a tile at D 2048 and B 8: 128 blocks; four at D 504).
+// Two ways to hold the basis, from the plan (ops/fft_dft_kernel.py):
+// - resident (kc = Kp <= 512, one pass or one pass a half): the pass's
+//   basis stays in shared memory for the whole block as ceil(Kp / 64)
+//   128-byte-swizzled slabs of N rows, and a ring stage holds whole
+//   windows, each in one TMA box of Kb = Kp rows or two of Kp / 2.  The
+//   plan takes this wherever it fits beside a ring of two windows.
+// - streamed (kc < Kp, everywhere else): the basis is not resident.  A
+//   ring stage holds a chunk of kc = 128 rows of tau: the window's box
+//   of kc rows and the pass's basis over those rows (kc / 64 slabs), both
+//   by TMA on the stage's mbarrier; a window is ceil(Kp / kc) chunks
+//   whose wgmmas accumulate in the same registers (the last chunk's
+//   k16 steps stop at Kp; its basis slabs past Kp are not loaded).
+//
+// x comes by TMA through a 3-D map {D, T, B} in {64, Kb, 1} boxes,
+// MN-major A for wgmma: a window's chunk is the box at (d0, i*hop + r,
+// b), and TMA's zero fill past T completes the tail windows of each
+// utterance (a 2-D map over [B*T, D] would read the next utterance's
+// first rows instead); rows nfft..Kp-1 of a window are real frames times
+// zero basis columns.  A block walks a run of consecutive windows of one
+// (b, 64 or 128 d) tile through the ring, so the L - 1 rows two windows
+// share come from L2; the run length is set by the wrapper so the blocks
+// fill the card (one run a tile at D 2048 and B 8: 128 blocks; four at
+// D 504).
 //
 // Epilogue: the warpgroup converts its 64 x N f32 tile to bf16 and
 // writes it transposed ([f][64 d], 128-byte rows, 128-byte swizzle) into
 // one of its two staging buffers with stmatrix.trans (eight 16-byte
 // rows a matrix land in eight different bank groups), then one thread
-// stores rows [0, BP) to xr and [BP, 2 BP) to xi by TMA through 3-D
-// maps {D, B*nblk, bins} in {64, 1, BP} boxes: bins past `bins` and d
-// past D are clipped.  The stores drain while the next window's wgmmas
-// run; a buffer is rewritten after cp.async.bulk.wait_group.read 1.
-// Every output is one block's sum in one fixed order: launches are
-// bitwise repeatable.
+// stores it by TMA through 3-D maps {D, B*nblk, bins} in {64, 1, S}
+// boxes: with one pass, rows [0, BP) to xr and [BP, 2 BP) to xi (S =
+// BP); else the pass's N rows (S = N) to xr or xi at bin (pass % (BP /
+// N)) * N.  Bins past `bins` and d past D are clipped.  The stores
+// drain while the next window's wgmmas run; a buffer is rewritten after
+// cp.async.bulk.wait_group.read 1.  Every output is one block's sum in
+// one fixed order: launches are bitwise repeatable.
 //
 // Probe switches (probe_fft_block_dft.py): -DDFT_NO_STORE (no TMA
 // stores), -DDFT_NO_X (no x loads: the basis only).
 //
-// Shape contract (the wrapper's): D % 8 == 0, 16-byte aligned bases,
-// Kp <= 512, BP <= 256, the plan's shared memory within 232,448 bytes.
+// Shape contract (the wrapper's): D % 8 == 0, 16-byte aligned bases, the
+// plan's (ops/fft_dft_kernel.py `plan`, which has one for every nfft >=
+// 2): N a multiple of 32 up to 256, resident windows in one or two
+// boxes of Kb <= 256 rows or streamed chunks of one box, and the plan's
+// shared memory within 232,448 bytes.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -75,6 +95,7 @@ constexpr uint32_t X_K16 = 16 * ROW;
 struct Shape {
   int T, D, hop, nblk, bins;
   int kp, kb, bp, wgs, stages, run, n_dt, n_runs, passes;
+  int kc, n_chunks, streamed;   // tau rows a ring stage, chunks a window, basis streamed
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -214,10 +235,13 @@ block_dft_kernel(const __grid_constant__ CUtensorMap map_x,
   extern __shared__ uint8_t smem_raw[];
   constexpr int TILE_BYTES = N * ROW;           // N rows of 128 bytes
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;   // 128B-swizzle atoms
-  const int n_slab = (s.kp + 63) / 64;
+  // resident: the pass's basis, ceil(Kp / 64) slabs; streamed: none (a
+  // stage holds its chunk's kc / 64 slabs after its x rows)
+  const int n_slab = s.streamed ? 0 : (s.kp + 63) / 64;
   const uint32_t g_s = base;
   const uint32_t x_base = g_s + n_slab * TILE_BYTES;
-  const uint32_t stage_bytes = s.wgs * s.kp * ROW;
+  const uint32_t x_bytes = s.wgs * s.kc * ROW;
+  const uint32_t stage_bytes = x_bytes + (s.streamed ? s.kc / 64 * TILE_BYTES : 0);
   const uint32_t outs = x_base + s.stages * stage_bytes;
   const uint32_t bars = outs + 2 * s.wgs * TILE_BYTES;
   auto x_s = [&](int st) { return x_base + st * stage_bytes; };
@@ -225,7 +249,7 @@ block_dft_kernel(const __grid_constant__ CUtensorMap map_x,
   auto empty = [&](int st) { return bars + 8 * (MAX_STAGES + st); };
   const uint32_t g_bar = bars + 16 * MAX_STAGES;
 
-  // block -> (b, d tile, run, pass), the pass fastest so both passes of
+  // block -> (b, d tile, run, pass), the pass fastest so the passes of
   // a window read it from L2 together
   int w = blockIdx.x;
   const int pass = w % s.passes;
@@ -253,22 +277,32 @@ block_dft_kernel(const __grid_constant__ CUtensorMap map_x,
     // ---- producer: one thread issues every load -----------------------
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(g_bar, n_slab * TILE_BYTES);
-      for (int sl = 0; sl < n_slab; ++sl)
-        tma_load_2d(g_s + sl * TILE_BYTES, &map_g, g_bar, 64 * sl, pass * N);
+      if (!s.streamed) {
+        mbar_expect_tx(g_bar, n_slab * TILE_BYTES);
+        for (int sl = 0; sl < n_slab; ++sl)
+          tma_load_2d(g_s + sl * TILE_BYTES, &map_g, g_bar, 64 * sl, pass * N);
+      }
       int it = 0;
-      for (int i = i0; i < i1; ++i, ++it) {
-        const int st = it % s.stages;
-        mbar_wait(empty(st), ((it / s.stages) & 1) ^ 1);
+      for (int i = i0; i < i1; ++i) {
+        for (int c = 0; c < s.n_chunks; ++c, ++it) {
+          const int st = it % s.stages;
+          const int k0 = c * s.kc;
+          // the chunk's basis slabs before Kp (streamed)
+          const int slabs = s.streamed ? (min(s.kc, s.kp - k0) + 63) / 64 : 0;
+          mbar_wait(empty(st), ((it / s.stages) & 1) ^ 1);
 #ifdef DFT_NO_X
-        mbar_arrive(full(st));
+          mbar_expect_tx(full(st), slabs * TILE_BYTES);
 #else
-        mbar_expect_tx(full(st), stage_bytes);
-        for (int c = 0; c < s.wgs; ++c)
-          for (int r = 0; r < s.kp; r += s.kb)
-            tma_load_3d(x_s(st) + (c * s.kp + r) * ROW, &map_x, full(st), d0 + 64 * c,
-                        i * s.hop + r, b);
+          mbar_expect_tx(full(st), x_bytes + slabs * TILE_BYTES);
+          for (int q = 0; q < s.wgs; ++q)
+            for (int r = 0; r < s.kc; r += s.kb)
+              tma_load_3d(x_s(st) + (q * s.kc + r) * ROW, &map_x, full(st), d0 + 64 * q,
+                          i * s.hop + k0 + r, b);
 #endif
+          for (int sl = 0; sl < slabs; ++sl)
+            tma_load_2d(x_s(st) + x_bytes + sl * TILE_BYTES, &map_g, full(st), k0 + 64 * sl,
+                        pass * N);
+        }
       }
     }
   } else {
@@ -278,7 +312,6 @@ block_dft_kernel(const __grid_constant__ CUtensorMap map_x,
     const int dw = d0 + 64 * part;
     const bool leader = threadIdx.x % 128 == 0;
     const int lane = threadIdx.x & 31, warp = (threadIdx.x / 32) & 3;
-    const int nk = s.kp / 16;
     float acc[N / 2];
 #pragma unroll
     for (int j = 0; j < N / 2; ++j) acc[j] = 0.f;
@@ -288,24 +321,30 @@ block_dft_kernel(const __grid_constant__ CUtensorMap map_x,
     // 16-byte chunk of it, swizzled by the row's low three bits)
     const int m_row = 8 * (lane >> 4) + (lane & 7);
     const int m_chunk = 2 * warp + ((lane >> 3) & 1);
-    mbar_wait(g_bar, 0);
-    int it = 0;
-    for (int i = i0; i < i1; ++i, ++it) {
-      const int st = it % s.stages;
-      mbar_wait(full(st), (it / s.stages) & 1);
-      const uint32_t xa = x_s(st) + part * s.kp * ROW;
-      fence_acc(acc);
-      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-      for (int k = 0; k < nk; ++k)
-        wgmma<N>(acc, desc(xa + k * X_K16), desc(g_s + (k >> 2) * TILE_BYTES + (k & 3) * 32),
-                 k);
-      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-      fence_acc(acc);
-      mbar_arrive(empty(st));
+    // with several passes a half, the pass's slice of xr's or xi's bins
+    const int per_half = s.passes > 1 ? s.passes / 2 : 1;
+    if (!s.streamed) mbar_wait(g_bar, 0);
+    int it = 0, wi = 0;
+    for (int i = i0; i < i1; ++i, ++wi) {
+      for (int c = 0; c < s.n_chunks; ++c, ++it) {
+        const int st = it % s.stages;
+        mbar_wait(full(st), (it / s.stages) & 1);
+        const uint32_t xa = x_s(st) + part * s.kc * ROW;
+        const uint32_t ga = s.streamed ? x_s(st) + x_bytes : g_s;
+        const int nk = min(s.kc, s.kp - c * s.kc) / 16;
+        fence_acc(acc);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+        for (int k = 0; k < nk; ++k)
+          wgmma<N>(acc, desc(xa + k * X_K16), desc(ga + (k >> 2) * TILE_BYTES + (k & 3) * 32),
+                   c + k);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        fence_acc(acc);
+        mbar_arrive(empty(st));
+      }
 
       // ---- epilogue: bf16, transposed into a staging buffer, TMA store --
-      const uint32_t sb = outs + (2 * part + (it & 1)) * TILE_BYTES;
+      const uint32_t sb = outs + (2 * part + (wi & 1)) * TILE_BYTES;
       // the stores that last read this buffer (two windows ago) are done
       if (leader) asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
       warpgroup_sync(part);
@@ -330,7 +369,7 @@ block_dft_kernel(const __grid_constant__ CUtensorMap map_x,
           tma_store_3d(&map_r, sb, dw, row, 0);
           tma_store_3d(&map_i, sb + s.bp * ROW, dw, row, 0);
         } else {
-          tma_store_3d(pass == 0 ? &map_r : &map_i, sb, dw, row, 0);
+          tma_store_3d(pass < per_half ? &map_r : &map_i, sb, dw, row, (pass % per_half) * N);
         }
       }
 #endif
@@ -388,18 +427,28 @@ bool make_map(CUtensorMap* map, const void* ptr, int rank, const uint64_t* d,
 
 template <int N>
 int launch(const void* x, const void* gt, void* xr, void* xi, int B, Shape s, void* stream) {
-  const int n_slab = (s.kp + 63) / 64;
-  const int smem = 1024 + n_slab * N * ROW + s.stages * s.wgs * s.kp * ROW +
-                   2 * s.wgs * N * ROW + 8 * (2 * MAX_STAGES + 1);
-  if (smem > SMEM_LIMIT || s.stages < 1 || s.stages > MAX_STAGES || s.kp % s.kb ||
-      s.kb > 256 || s.bp > 256 || (s.wgs != 1 && s.wgs != 2))
+  const int stage = s.wgs * s.kc * ROW + (s.streamed ? s.kc / 64 * N * ROW : 0);
+  const int n_slab = s.streamed ? 0 : (s.kp + 63) / 64;
+  const int smem = 1024 + n_slab * N * ROW + s.stages * stage + 2 * s.wgs * N * ROW +
+                   8 * (2 * MAX_STAGES + 1);
+  // the plan's domain (ops/fft_dft_kernel.py `plan`): one pass of 2 BP
+  // columns or BP / N passes a half; resident (kc = Kp in one box or two
+  // of Kp / 2, one pass or one a half) or streamed (chunks of kc rows, a
+  // multiple of 64, one box each)
+  const bool passes_ok = s.passes == 1 ? 2 * s.bp == N
+                                       : s.passes % 2 == 0 && s.bp == s.passes / 2 * N;
+  const bool depth_ok =
+      s.streamed ? (s.kb == s.kc && s.kc % 64 == 0 && s.kc < s.kp)
+                 : (s.kc == s.kp && s.passes <= 2 && (s.kb == s.kp || 2 * s.kb == s.kp));
+  if (smem > SMEM_LIMIT || s.stages < 1 || s.stages > MAX_STAGES || s.kp % 16 || s.kb < 8 ||
+      s.kb > 256 || !passes_ok || !depth_ok || (s.wgs != 1 && s.wgs != 2))
     return cudaErrorInvalidValue;
   CUtensorMap mx, mg, mr, mi;
   const uint64_t dx[3] = {(uint64_t)s.D, (uint64_t)s.T, (uint64_t)B};
   const uint64_t dg[2] = {(uint64_t)s.kp, (uint64_t)(2 * s.bp)};
   const uint64_t dout[3] = {(uint64_t)s.D, (uint64_t)B * s.nblk, (uint64_t)s.bins};
   const uint32_t bx[3] = {64, (uint32_t)s.kb, 1}, bg[2] = {64, (uint32_t)N},
-                 bo[3] = {64, 1, (uint32_t)s.bp};
+                 bo[3] = {64, 1, (uint32_t)(s.passes == 1 ? s.bp : N)};
   if (!make_map(&mx, x, 3, dx, bx) || !make_map(&mg, gt, 2, dg, bg) ||
       !make_map(&mr, xr, 3, dout, bo) || !make_map(&mi, xi, 3, dout, bo))
     return cudaErrorInvalidValue;
@@ -419,14 +468,17 @@ extern "C" const char* tsr_cuda_error_string(int err) {
 
 // x [B, T, D] bf16, gt [2 bp, kp] bf16 (the basis transposed, rows past
 // bins of each half and columns past nfft zero) -> xr, xi [bins, B,
-// nblk, D] bf16.  The plan (kb, bp, n, passes, wgs, stages, run) is the
-// wrapper's (ops/fft_dft_kernel.py, `plan`).
+// nblk, D] bf16.  The plan (kb, bp, n, passes, wgs, stages, run, kc) is
+// the wrapper's (ops/fft_dft_kernel.py, `plan`).
 extern "C" int tsr_fft_block_dft(const void* x, const void* gt, void* xr, void* xi, int B, int T,
                                  int D, int hop, int nblk, int bins, int kp, int kb, int bp,
-                                 int n, int passes, int wgs, int stages, int run,
+                                 int n, int passes, int wgs, int stages, int run, int kc,
                                  void* stream) {
+  if (B < 1 || D < 1 || nblk < 1 || run < 1 || kc < 16 || kb < 1 || wgs < 1)
+    return cudaErrorInvalidValue;
   Shape s{T, D, hop, nblk, bins, kp, kb, bp, wgs, stages, run,
-          (D + 64 * wgs - 1) / (64 * wgs), (nblk + run - 1) / run, passes};
+          (D + 64 * wgs - 1) / (64 * wgs), (nblk + run - 1) / run, passes,
+          kc, (kp + kc - 1) / kc, kc < kp};
   switch (n) {
     case 32: return launch<32>(x, gt, xr, xi, B, s, stream);
     case 64: return launch<64>(x, gt, xr, xi, B, s, stream);

@@ -56,7 +56,9 @@ def pick_nfft(length: int, bank_k: int = 0) -> int:
     """hop = 16-aligned ~4*L (banks of 4096 templates or more: ~6*L),
     nfft = hop + L - 1.  Copied unchanged from the reference, whose
     constants were swept on a TPU; they define the parity target here
-    (a sweep on the H100 is later work)."""
+    (a sweep on the H100 is later work).  Kernel 3 has a plan for every
+    nfft >= 2 (``ops.fft_dft_kernel.plan``), so every L scans on the
+    card."""
     mult = 6 if bank_k >= 4096 else 4
     hop = max(16, ((mult * length + 15) // 16) * 16)
     return hop + length - 1
@@ -176,7 +178,8 @@ def build_fft_bank(w: torch.Tensor, c: torch.Tensor, nfft: int | None = None,
     if nfft is None:
         nfft = pick_nfft(length, bank_k=k)
     if nfft - length + 1 <= 0:
-        raise ValueError(f"nfft {nfft} too small for template length {length}")
+        raise ValueError(f"nfft {nfft} too small for template length {length}: "
+                         f"nfft >= L is the only limit on it")
     w, c = w.reshape(k, length, d), c.to(torch.float32)
     if w.device.type == "cuda":
         w, c = pad_templates(w, c)

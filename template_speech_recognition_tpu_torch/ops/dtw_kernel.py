@@ -37,7 +37,13 @@ Staging: where a pair's tile is one contiguous aligned block that fits
 (``whole_tile``: the map and gathered routes at the scan's shapes), the
 whole tile by one bulk asynchronous copy; else its in-band cells by
 4-byte ``cp.async`` in band-skewed chunks of 32/R diagonals through a
-ring of 3 chunks a warp; the c row by ``cp.async``.
+ring of 3 chunks a warp.  The fused mode's c words by ``cp.async``: the
+pair's whole c row with its tile or its first chunk where L <=
+``C_ROW_LENGTH``; past it, through the ring, a span of WP + CK c rows a
+chunk (from the first in-band row of its first diagonal, which holds
+every row its in-band cells read), so shared memory does not grow with
+L.  Any L >= 1; the in-band rows of a diagonal, min(2*band+1,
+L), at most ``MAX_WINDOW`` (R <= 16 registers a lane).
 ``banded_dtw_emulated`` repeats that schedule in PyTorch (lanes,
 registers, shuffles, ring slots, whole tiles) for the CPU tests.
 Terminals and scores are bitwise those of the plain versions.
@@ -57,8 +63,9 @@ NAME = "banded_dtw"
 SOURCE = "template_speech_recognition_tpu_torch/csrc/banded_dtw.cu"
 REPLACES = "template_speech_recognition_tpu/ops/dtw_pallas.py:688"
 UNREACHABLE = 3.0e38
-MAX_LENGTH = 256
-WARPS, STAGES, STAGE_WORDS, TILE_WORDS = 4, 3, 1024, 6144      # csrc/banded_dtw.cu
+MAX_WINDOW = 511
+WARPS, STAGES, STAGE_WORDS, TILE_WORDS = 4, 3, 1024, 6144                   # csrc/banded_dtw.cu
+C_ROW_LENGTH, C_STAGE_WORDS = 256, 544
 
 
 def banded_dtw_plain(cost: torch.Tensor, seg_lens: torch.Tensor,
@@ -155,10 +162,13 @@ def _launch(llr4, seg_lens, c_tab, cid, band, fused, lib=None):
 
 
 def _check_length(length: int, band: int) -> None:
-    if not 1 <= length <= MAX_LENGTH:
-        raise ValueError(f"L={length}: the kernel takes 1 <= L <= {MAX_LENGTH}")
+    if length < 1:
+        raise ValueError(f"L={length}: the kernel takes L >= 1")
     if band < 0:
         raise ValueError(f"band must be >= 0, got {band}")
+    if min(2 * band + 1, length) > MAX_WINDOW:
+        raise ValueError(f"L={length}, band={band}: the kernel takes at most {MAX_WINDOW} "
+                         f"in-band rows a diagonal, min(2*band+1, L)")
 
 
 def banded_dtw_scores(llr: torch.Tensor, seg_lens: torch.Tensor, c_tab: torch.Tensor,
@@ -167,7 +177,8 @@ def banded_dtw_scores(llr: torch.Tensor, seg_lens: torch.Tensor, c_tab: torch.Te
     [B] int32 (1 <= seg_len <= M), c_tab [G, L] f32, cid [N] / [B*Q]
     int32 in [0, G) or None (pair n takes row n % G) -> scores [N] or
     [B, Q] f32 (-inf where unreachable).  CPU tensors take the plain
-    version; CUDA tensors launch the kernel (L <= 256), one launch."""
+    version; CUDA tensors launch the kernel (min(2*band+1, L) <=
+    ``MAX_WINDOW``), one launch."""
     tensors = [llr, seg_lens, c_tab] + ([] if cid is None else [cid])
     if _cuda.on_cpu(*tensors):
         return banded_dtw_scores_plain(llr, seg_lens, c_tab, band, cid)
@@ -194,7 +205,7 @@ def banded_dtw(cost: torch.Tensor, seg_lens: torch.Tensor, band: int) -> torch.T
     """cost [N, L, M] f32 + seg_lens [N] int32 (1 <= seg_len <= M) ->
     terminal costs [N] f32 (3e38 where unreachable): the kernel's raw
     mode.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel (L <= 256)."""
+    kernel (min(2*band+1, L) <= ``MAX_WINDOW``)."""
     if _cuda.on_cpu(cost, seg_lens):
         return banded_dtw_plain(cost, seg_lens, band)
     _cuda.require(cost, "cost", torch.float32, 3)
@@ -258,8 +269,10 @@ def banded_dtw_emulated(llr: torch.Tensor, seg_lens: torch.Tensor, band: int,
     through position 0's seeded Q (no test of the cell), each lane's
     share of the staging into a ring of ``STAGES`` band-skewed chunks per
     warp (filled with NaN first, never cleared) or, where ``whole_tile``
-    holds, the tile read in place, the warp's loop to its last pair's
-    terminal diagonal.  Raw mode (``c_tab`` None): terminals;
+    holds, the tile read in place; in the fused mode the pair's whole c
+    row, or through the ring past L = ``C_ROW_LENGTH`` each chunk's span
+    of WP + CK c rows in a ring of its own (also NaN first); the warp's
+    loop to its last pair's terminal diagonal.  Raw mode (``c_tab`` None): terminals;
     else scores, as ``banded_dtw_scores``."""
     fused = c_tab is not None
     llr4 = _as_pairs(llr)
@@ -295,12 +308,26 @@ def banded_dtw_emulated(llr: torch.Tensor, seg_lens: torch.Tensor, band: int,
         crow = c_tab.to(torch.float32)[rows]                             # [W, 32, L]
     ring = torch.full((n_warps, STAGES * STAGE_WORDS), float("nan"))
     tile = whole_tile(llr4, band)
+    cchunk = fused and not tile and length > C_ROW_LENGTH
+    cspan = wp + ck
+    cring = torch.full((n_warps, STAGES * C_STAGE_WORDS), float("nan"))
 
     def stage(ch):
         """Each lane's copies for chunk ``ch`` into ring slot ch % STAGES
         (whole-tile mode: none; the chain reads the tile)."""
         if tile:
             return
+        if cchunk:
+            # the chunk's c rows [lo, lo + cspan) from its first
+            # diagonal's first in-band row, rows past L not read
+            lo, _hi = band_rows(torch.full_like(pc, ch * ck), jl, length, band)
+            run_c = (ch < nch)[:, None] & (ch * ck <= kmax) & (t == 0)[None, :]
+            cbase = (ch % STAGES) * C_STAGE_WORDS + slot * cspan              # [32]
+            for u in range(cspan):
+                take = run_c & (lo + u < length)
+                if bool(take.any()):
+                    wi, li = torch.nonzero(take, as_tuple=True)
+                    cring[wi, cbase[li] + u] = crow[wi, li, (lo + u)[wi, li]]
         base = (ch % STAGES) * STAGE_WORDS + slot * wp                   # [32]
         if r_ == 1:
             per_lane = [(kk, 0, 1) for kk in range(ck)]                  # lane kk % nl
@@ -346,6 +373,7 @@ def banded_dtw_emulated(llr: torch.Tensor, seg_lens: torch.Tensor, band: int,
     for ch in range(int(nch.max()) if n_warps else 0):
         stage(ch + STAGES - 1)
         k0 = ch * ck
+        clo = ilo.clone()          # the chunk's c rows start at its first ilo
         for kk in range(ck):
             k = k0 + kk
             run = (ch < nch) & (k <= kend)                               # [W]
@@ -378,9 +406,13 @@ def banded_dtw_emulated(llr: torch.Tensor, seg_lens: torch.Tensor, band: int,
             else:
                 slot_base = (ch % STAGES) * STAGE_WORDS + kk * 32 * r_
                 x = ring[:, slot_base + (lane[None, :] if r_ == 1 else 32 * regs + lane[None, :])]
-            if fused:
+            if fused and not cchunk:
                 c = torch.gather(crow, 2, torch.where(valid, i, 0).permute(0, 2, 1))
                 x = -(x + c.permute(0, 2, 1))
+            elif fused:    # the chunk's c rows, from its first row clo
+                cidx = torch.where(valid, i - clo[:, None, :], 0)
+                cidx = (ch % STAGES) * C_STAGE_WORDS + slot[None, None, :] * cspan + cidx
+                x = -(x + torch.gather(cring, 1, cidx.reshape(n_warps, -1)).reshape(x.shape))
             # an out-of-band cell adds +inf: min(inf + best, 3e38) = 3e38
             x = torch.where(valid, x, float("inf"))
             v = torch.minimum(x + best, unreach)

@@ -3,13 +3,14 @@
 The kernel (``csrc/fft_block_dft.cu``) runs only on the card; its
 schedule, ``fft_block_dft_tiled`` (the padded K-major basis with zero
 rows, Kp-row windows with zeros past each utterance's T, runs of
-windows, the basis split into two passes past 256 columns, the partial
+windows, the basis split into passes past 256 columns, the partial
 last d tile), is held here against the plain version and against the
 reference's Pallas kernel in interpret mode, in float32, at ragged
 shapes: three utterances whose last window overruns T (T not a multiple
 of hop), D 504 and 40, nfft 159, 39, 223 and 319.  Tolerance: 1e-5 x
 max|reference| (the same exact products summed in other float32
-orders).  Also the wrapper's plan and the shapes it must refuse.
+orders).  Also the wrapper's plan and the shapes it must refuse (the
+plans past one pass, at every template length: ``test_torch_shapes.py``).
 """
 
 from __future__ import annotations
@@ -130,8 +131,12 @@ def test_ragged_cases_catch_a_read_into_the_next_utterance():
         (2, 1024, 39, 8, dict(kp=48, kb=48, bp=32, n=64, passes=1, wgs=2, stages=4, run=1)),
         # one 64-column tile
         (3, 40, 39, 8, dict(wgs=1)),
+        # past 512 rows: the basis streams in chunks of 128 rows, 8 passes
+        (2, 512, 1023, 4, dict(kp=1024, kb=128, kc=128, bp=512, n=128, passes=8, wgs=2)),
+        # 257 bins: too many for one resident pass a half; 6 streamed passes
+        (2, 512, 512, 4, dict(kp=512, kb=128, kc=128, bp=288, n=96, passes=6, wgs=2)),
     ],
-    ids=["scan", "log-mel", "bank4096", "L64", "small", "d40"],
+    ids=["scan", "log-mel", "bank4096", "L64", "small", "d40", "nfft1023", "bins257"],
 )
 def test_plan(b, d, nfft, nblk, want):
     p = k3.plan(b, d, nfft, nblk, nfft // 2 + 1)
@@ -142,8 +147,10 @@ def test_plan(b, d, nfft, nblk, want):
     assert b * n_tiles * -(-nblk // p.run) * p.passes <= max(k3.H100_SMS, b * n_tiles * p.passes)
 
 
-@pytest.mark.parametrize("nfft,bins", [(1023, 512), (512, 257)])
+@pytest.mark.parametrize("nfft,bins", [(159, 79), (1, 1)])
 def test_plan_raises(nfft, bins):
+    """Only arguments that are not a block DFT: bins other than nfft //
+    2 + 1, nfft < 2."""
     with pytest.raises(ValueError):
         k3.plan(2, 512, nfft, 4, bins)
 
@@ -172,8 +179,8 @@ def _offset_view(shape):
     [
         ("D 500", lambda: (torch.zeros(2, 300, 500, dtype=torch.bfloat16),
                            _g(159).to(torch.bfloat16), 159, 128, 3)),
-        ("nfft 1023", lambda: (torch.zeros(2, 600, 64, dtype=torch.bfloat16),
-                               _g(1023).to(torch.bfloat16), 1023, 512, 1)),
+        ("B 0", lambda: (torch.zeros(0, 300, 64, dtype=torch.bfloat16),
+                         _g(159).to(torch.bfloat16), 159, 128, 3)),
         ("g not [nfft, 2 bins]", lambda: (torch.zeros(2, 300, 64, dtype=torch.bfloat16),
                                           _g(159)[:158].to(torch.bfloat16), 159, 128, 3)),
         ("misaligned base", lambda: (_offset_view((2, 300, 64)), _g(159).to(torch.bfloat16),

@@ -45,7 +45,11 @@ launch of ``banded_dtw_scores``, or the cost prologue, the kernel and the
 score's elementwise ops), and ``dtw_stage_exhaustive`` one chunk of the
 exhaustive rescore (53 segments of 38 frames x 1024 templates: the
 fp32 GEMM's [53, 38, 1024, 32] output, 264 MB, read in place, or
-permuted, offset, negated and copied first), over loops of 10.
+permuted, offset, negated and copied first), over loops of 10;
+``dtw_stage_classify`` the same stage at classification's shape (4031
+segments of 15 frames x 8 templates of L 8, seg_len in [8, 15], the
+GEMM's [4031, 15, 8, 8] output read through its strides: the ring
+route), over loops of 100.
 Inputs come from seed 0.
 
     python3 time_kernels.py ROOT [ROOT ...]
@@ -75,6 +79,7 @@ BINS, NFFT_S = 80, 159                                         # kernels 3, 6: m
 F_MEL, VALID_MEL = 63, 2997                                    # the layered select, k9
 TOP_K, M_LLR, VALID_LLR, DENSITY_LLR = 123, 40, 2998, 0.15     # kernel 11
 BAND_DTW, NB_EX, M_EX = 6, 53, 38                              # kernels 12, 13
+NB_CL, M_CL, K_CL, L_CL = 4031, 15, 8, 8                       # classification's DTW
 
 
 def dtw_stage(torch, k12, llr, lens, c_rows, ids):
@@ -208,6 +213,13 @@ def one(root: str) -> dict:
     fn = exhaustive_stage(torch, k12, gemm, lens_ex, c_ex)
     out["dtw_stage_exhaustive"] = {"loop10_ms": time_ms(torch, fn, loop=10),
                                    "one_launch_ms": time_ms(torch, fn)}
+    del gemm
+    gemm = torch.randn(NB_CL, M_CL, K_CL, L_CL, device=dev, generator=g) - 2.0
+    lens_cl = torch.from_numpy(rng.integers(L_CL, M_CL + 1, NB_CL).astype(np.int32)).to(dev)
+    c_cl = torch.randn(K_CL, L_CL, device=dev, generator=g)
+    fn = exhaustive_stage(torch, k12, gemm, lens_cl, c_cl)
+    out["dtw_stage_classify"] = {"loop100_ms": time_ms(torch, fn, loop=100),
+                                 "one_launch_ms": time_ms(torch, fn)}
     del gemm
     for name, x in (("correlation", maps), ("correlation_b1", map1)):
         fn = lambda x=x: k10.correlation_scores(x, w, c)      # noqa: E731
