@@ -74,8 +74,8 @@
    TMA + wgmma bin matmul at m = 1, 63, 64, 65, 96 x D = 8, 40, 504 x
    K = 8, 136 x bins = 1, 3, the 4-D input, the block DFT at three
    utterances whose last window overruns T x D = 504, 40, 8 x nfft =
-   159, 39, 223, 319 (two launches bitwise equal; B 0, D 500 and
-   a misaligned base raise), the TMA + wgmma iDFT at
+   159, 39, 223, 319 (two launches bitwise equal; B 0 raises; D 500 and
+   a misaligned base are padded to D8 and held as close), the TMA + wgmma iDFT at
    2 bins = 40, 160 x hop = 32, 128, 224 x K = 8, 136, 1024 x m = 1,
    3, 192 and at hop 30, and misaligned base pointers that must raise)
    and holds it against its plain version.  Kernel 2 (16-CTA clusters
@@ -183,7 +183,23 @@
    under ``check_scan_scores``' classes; the L 80 DTW scan's pair-LLR
    operands and DTW tiles (the ring route) held to their plain versions;
    the DTW kernel at L 300, band 6, raw and fused, bitwise;
-9. runs the port's TIMIT input on a synthetic TIMIT tree that
+9. inputs the kernels refused before and the reference scores
+   (``domain_phase``; ``python3 chip_smoke.py --domain`` runs the build
+   and this phase alone), each on its kernel with the launch counts
+   set to 0 just before the call and read just after, against its plain
+   version: kernel 1's mel mode at n_mels 485 (nfft 1024) and 968 (nfft
+   2048), two and three launches a call, planes against float64 and
+   the map of ``frontend_batch_flat`` (the two-kernel and the layered
+   path) <= 1e-3 of cells unlike the plain run's, and n_mels 129 forced
+   into chunks of 50 filters bitwise the one launch; the DTW kernel's
+   wide route at windows 601 and 1101 (132 pairs), raw and fused
+   bitwise, and with its state in scratch; kernels 10, 11, 3 and 4 at D
+   500 and 36 and at a base one element off (their wrappers pad to D8;
+   rows tagged by ``shape`` at D 500, the padding copy timed, none at D
+   504), the FFT scorer with D 36 banks on bf16 and int8 spectra; kernel
+   10 at B*T'' just past 2^31 (D 8, 34 GB of map, every utterance
+   against the plain version) and at L*D past 2^31;
+10. runs the port's TIMIT input on a synthetic TIMIT tree that
    ``io.fixtures.write_synthetic_timit`` writes (TIMIT's 1,680 TEST
    utterances; 1,024 TRAIN, cut from TIMIT's 4,620; 16 phones, ~3 s, an
    utterance): decodes it with the native and the Python readers
@@ -787,22 +803,29 @@ def dft_checks(torch, dev, k3, fs, say):
             n += 1
     cm, sm = fs._dft_mats(159, torch.bfloat16, dev)
     g = torch.cat([cm, -sm], dim=1).contiguous()
+    try:
+        k3.fft_block_dft(torch.zeros((0, 300, 64), dtype=torch.bfloat16, device=dev), g, 159,
+                         128, 3)
+        check(False, "fft_block_dft took B 0")
+    except ValueError:
+        pass
+    # D 500 and a base 2 bytes off: the wrapper pads to an aligned D8
+    # copy and launches the kernel, the plain version's values
     buf = torch.zeros(2 * 300 * 512 + 8, dtype=torch.bfloat16, device=dev)
-    for why, args in (
-        ("B 0", (torch.zeros((0, 300, 64), dtype=torch.bfloat16, device=dev), g, 159, 128, 3)),
-        ("D 500", (torch.zeros((2, 300, 500), dtype=torch.bfloat16, device=dev), g, 159, 128,
-                   3)),
-        ("a base 2 bytes off", (buf[1 : 1 + 2 * 300 * 512].view(2, 300, 512), g, 159, 128, 3)),
-    ):
-        try:
-            k3.fft_block_dft(*args)
-            check(False, f"fft_block_dft took {why}")
-        except ValueError:
-            pass
+    off = buf[1 : 1 + 2 * 300 * 512].view(2, 300, 512)
+    off.copy_((torch.rand(2, 300, 512, device=dev) < 0.3).to(torch.bfloat16))
+    for why, x in (("D 500", (torch.rand(2, 300, 500, device=dev) < 0.3).to(torch.bfloat16)),
+                   ("a base 2 bytes off", off)):
+        got = k3.fft_block_dft(x, g, 159, 128, 3)
+        ref = k3.fft_block_dft_plain(x, g, 159, 128, 3)
+        err = max(float((a.float() - r.float()).abs().max()) for a, r in zip(got, ref))
+        top = max(float(r.float().abs().max()) for r in ref)
+        check(got[0].shape == ref[0].shape and err <= 2.0 ** -7 * top,
+              f"fft_block_dft ({why}): {err} > 2^-7 * {top}")
     say(f"fft_block_dft: within 2^-7 x max|ref| at {n} ragged shapes (B 3, the last window "
         f"past T; D 504/40/8; nfft 159/39/223/319 and 236/399/518/1791 (L 45/80/103 of K "
         f"1024, L 256 of K 4096), 236 and 319 in two passes, 399 and up streamed), two launches "
-        f"bitwise; B 0, D 500 and a misaligned base raise")
+        f"bitwise; D 500 and a base 2 bytes off (padded to D8) as close; B 0 raises")
 
 
 # (B, P, T, F, valid, kind) of the radix select's small checks: F 39,
@@ -923,13 +946,13 @@ def small_shape_checks(torch, dev, audio, k1, k2, k3, k4, k5, kp, kd, k8, k9, kc
     a_r, a_i, w_s = rnd(3, 3, 32, 504), rnd(3, 3, 32, 504), rnd(3, 1008, 136)
     close(k4.fft_binmm(a_r, a_i, w_s), k4.fft_binmm_plain(a_r, a_i, w_s), tol,
           "fft_binmm (4-D input, B=3)")
+    # a base pointer 2 bytes off, which TMA cannot take: the wrapper
+    # pads to an aligned copy and launches the kernel
     off = rnd(3 * 96 * 40 + 8)[1 : 1 + 3 * 96 * 40].view(3, 96, 40)
     check(off.data_ptr() % 16 == 2, "the misaligned view is not misaligned")
-    try:
-        k4.fft_binmm(off, rnd(3, 96, 40), rnd(3, 80, 136))
-        check(False, "fft_binmm took a base pointer that is not 16-byte aligned")
-    except ValueError:
-        pass
+    a_i, w_s = rnd(3, 96, 40), rnd(3, 80, 136)
+    close(k4.fft_binmm(off, a_i, w_s), k4.fft_binmm_plain(off, a_i, w_s), tol,
+          "fft_binmm (a base 2 bytes off)")
     ycat = torch.randn(2 * bins, m * k, device=dev).to(torch.bfloat16)
     icm, ism = fs._idft_mats(nfft, hop, torch.bfloat16, dev)
     imat = torch.cat([icm, -ism], dim=0).contiguous()
@@ -990,13 +1013,15 @@ def small_shape_checks(torch, dev, audio, k1, k2, k3, k4, k5, kp, kd, k8, k9, kc
     say(f"frontend_planes at {len(cases) + 1} small shapes, the most of each: "
         f"{float64_text(worst)}")
     # the shared memory a launch asks for, and the mel count past which
-    # the kernel refuses (supported() says no)
+    # the wrapper launches in chunks (mel_chunks)
     smem_fn = _cuda.load("frontend_planes").tsr_frontend_planes_smem
     smem_fn.argtypes, smem_fn.restype = [ctypes.c_int], ctypes.c_int
     smem = {nm: smem_fn(nm) for nm in (0, 64, 129, k1.MAX_MELS, k1.MAX_MELS + 1)}
     check(smem[k1.MAX_MELS] <= 232448 < smem[k1.MAX_MELS + 1],
           f"frontend_planes: MAX_MELS disagrees with the kernel's shared memory {smem}")
-    check(not k1.supported(512, k1.MAX_MELS + 1), "supported() admits too many mel filters")
+    check(k1.mel_chunks(k1.MAX_MELS + 1) == [(0, k1.MAX_MELS - 1), (k1.MAX_MELS - 1,
+                                                                       k1.MAX_MELS)],
+          "mel_chunks: past MAX_MELS, two launches sharing a filter")
     say(f"frontend_planes dynamic shared memory by n_mels: {smem}")
     off = fr.reshape(-1)[: 3 * 400 + 1].clone()[1:].view(3, 400)
     check(off.data_ptr() % 16 == 4, "the misaligned view is not misaligned")
@@ -2967,7 +2992,384 @@ def shapes_phase(torch, say, dev, C, corpus, x_map, flips, record, rows, M):
     say(f"shapes phase: {time.perf_counter() - t_phase:.1f} s")
 
 
-def main() -> int:
+# the domain phase: inputs that only the reference used to score
+DOMAIN_MELS = ((485, 1024), (968, 2048))   # kernel 1 in chunks: (n_mels, nfft)
+DOMAIN_MEL_UTTS = 2                        # utterances of the map and planes
+DOMAIN_DTW = ((601, 300, 132), (1101, 550, 132))   # the wide route: (L, band, pairs)
+DOMAIN_D = (500, 36)                       # D % 8 != 0 in kernels 3, 4, 10 and 11
+DOMAIN_ROWS = (4097, 2)                    # kernel 10 past 2^31 rows: T, L (T'' 4096)
+DOMAIN_ROW_LIMIT = 2**31
+DOMAIN_LD = (32769, 65536)                 # kernel 10 past L*D = 2^31: L, D
+
+
+def domain_phase(torch, say, dev, wavs, nvalid, record, rows):
+    """Inputs the kernels refused before and the reference scores, each
+    on its kernel on the card (launch counts set to 0 just before each
+    call and read just after: the kernel ran, as many times as the call
+    needs) against its plain version, with the tolerance stated:
+
+    * kernel 1 in mel mode past ``MAX_MELS`` filters (``DOMAIN_MELS``:
+      two and three chunks), its planes against float64
+      (``check_planes``) and the map of ``frontend_batch_flat`` (two
+      utterances) against the plain run's (<= 1e-3 of cells); and at
+      n_mels 129 forced into chunks of 50 filters, bitwise the one launch;
+    * the DTW kernel's wide route at windows 601 and 1101 and one pair of
+      12,300 rows (its state past shared memory, in scratch), raw and
+      fused, bitwise;
+    * kernels 3, 4, 10 and 11 at D 500 and 36 and at a base one element off
+      (their wrappers pad to D8), and the FFT scorer with a D 36 bank;
+    * kernel 10 at B*T'' just past 2^31 (D 8; the utterances either side
+      of row 2^31 against the plain version) and at L*D past 2^31.
+    New ``shape`` rows in the kernels line; the padding copy at D 500
+    timed."""
+    from template_speech_recognition_tpu_torch import config as C
+    from template_speech_recognition_tpu_torch.detect import fft_scorer as fs
+    from template_speech_recognition_tpu_torch.frontend import planes as fp
+    from template_speech_recognition_tpu_torch.ops import _cuda
+    from template_speech_recognition_tpu_torch.ops import (
+        correlation_kernel as kc,
+        dtw_kernel as kd,
+        fft_binmm_kernel as k4,
+        fft_dft_kernel as k3,
+        frontend_kernel as k1,
+        pair_llr_kernel as kp,
+    )
+    from template_speech_recognition_tpu_torch.ops.dft import dft_matrices
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 11)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+
+    def launched(fn, expect, label):
+        """fn() with the launch counts set to 0 just before and read just
+        after: each name in ``expect`` launched that many times."""
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = _cuda.launch_counts()
+        for name, n in expect.items():
+            check(counts.get(name, 0) == n, f"{label}: {name} launched {counts.get(name, 0)} "
+                                            f"times, not {n}")
+        return out, counts
+
+    def close(got, want, rel, label):
+        err = float((got.float() - want.float()).abs().max())
+        top = float(want.float().abs().max())
+        check(err <= rel * top, f"{label}: {err} > {rel} * {top}")
+        return err
+
+    # ---- kernel 1: the mel mode past MAX_MELS filters, in chunks ------
+    mel = SimpleNamespace(NAME=k1.MEL_NAME, SOURCE=k1.SOURCE, REPLACES=k1.MEL_REPLACES)
+    w2_, n2_ = wavs[:DOMAIN_MEL_UTTS], nvalid[:DOMAIN_MEL_UTTS]
+    for n_mels, nfft in DOMAIN_MELS:
+        cfg = C.FrontendConfig(use_mel=True, n_mels=n_mels, nfft=nfft)
+        sr = cfg.sample_rate
+        x = fp._windowed_frames(w2_, cfg)
+        x = x.reshape(-1, x.shape[-1]).contiguous()
+        n_rows, fl = x.shape
+        chunks = k1.mel_chunks(n_mels)
+        label = f"frontend_planes (n_mels {n_mels}, nfft {nfft}, {len(chunks)} chunks)"
+        got, _ = launched(lambda: k1.edge_response_planes(x, nfft, sr, n_mels),
+                          {k1.MEL_NAME: len(chunks)}, label)
+        want = k1.edge_response_planes_plain(x, nfft, sr, n_mels)
+        m = check_planes(torch, x, nfft, got, want, label, sr, n_mels, min_share=0.0)
+        cos_m, sin_m = dft_matrices(fl, nfft, dev)
+        cs = torch.cat([cos_m, sin_m], dim=1).contiguous()
+        _fbt, mr = k1._mel_on(sr, nfft, n_mels, str(dev))
+        nnz = int((mr[:, 1] - mr[:, 0]).sum())
+        bins = nfft // 2 + 1
+        record(mel, m["err"], "scaled 1e-5 of float64; error bounds",
+               time_ms(torch, lambda: k1.edge_response_planes(x, nfft, sr, n_mels), loop=10),
+               time_ms(torch, lambda: k1.edge_response_planes_plain(x, nfft, sr, n_mels)),
+               time_ms(torch, lambda: torch.matmul(x, cs), loop=10),
+               n_rows * fl * 4 + 2 * fl * bins * 4 + bins * n_mels * 4
+               + 4 * n_rows * (n_mels - 1) * 4,
+               2 * 2 * n_rows * fl * bins + 2 * n_rows * nnz, FP32_FLOPS, tf32=True,
+               shape=f"mel chunks: N {n_rows}, FL {fl}, nfft {nfft}, n_mels {n_mels}")
+        rows[-1]["launches"] = len(chunks)
+        say(f"{label}: {float64_text(m)}")
+        del got, want
+        # the map through frontend_batch_flat: the two-kernel path at F 484
+        # (kernel 2), the layered one at F 967 (kernels 8 and 9)
+        fused = fp._fused_ok(cfg)
+        check(fused == (cfg.feature_freqs % 4 == 0), f"n_mels {n_mels}: path rule {fused}")
+        expect = {k1.MEL_NAME: len(chunks)}
+        expect.update({"select_binspread": 1} if fused else {"radix_select": 1, "binspread": 1})
+        fm, counts = launched(lambda: fp.frontend_batch_flat(w2_, n2_, cfg).binary, expect,
+                              f"frontend_batch_flat (n_mels {n_mels})")
+        plain = fp.frontend_batch_flat(w2_, n2_, cfg, plain=True).binary
+        share = int((fm != plain).sum()) / plain.numel()
+        check(share <= 1e-3, f"n_mels {n_mels}: {share} of the map cells differ from the plain "
+                             f"run's")
+        say(f"frontend_batch_flat (n_mels {n_mels}, nfft {nfft}, "
+            f"{'two-kernel' if fused else 'layered'} path): map {tuple(fm.shape)}, "
+            f"{int(fm.sum())} set cells, {share:.3g} of them unlike the plain run's "
+            f"(tolerance 1e-3); launches {counts}")
+        del fm, plain, x
+    # the chunking itself: n_mels 129 in chunks of 50 filters, bitwise the
+    # one launch
+    x = fp._windowed_frames(w2_, C.FrontendConfig()).reshape(-1, 400).contiguous()
+    one = k1.edge_response_planes(x, 512, 16000, 129)
+    saved = k1.MAX_MELS
+    k1.MAX_MELS = 50
+    try:
+        forced, _ = launched(lambda: k1.edge_response_planes(x, 512, 16000, 129),
+                             {k1.MEL_NAME: 3}, "frontend_planes (n_mels 129 in chunks of 50)")
+    finally:
+        k1.MAX_MELS = saved
+    check(bool(torch.equal(one, forced)), "frontend_planes: chunks of 50 filters are not the "
+                                          "one launch's planes")
+    say("frontend_planes at n_mels 129 in 3 chunks of <= 50 filters: bitwise the one launch")
+    del one, forced, x
+
+    # ---- the DTW kernel's wide route: raw and fused, bitwise -----------
+    for length, band, n in DOMAIN_DTW:
+        m_ = length + 40
+        sched = kd.wide_schedule(length, m_, band)
+        check(kd.is_wide(length, m_, band), f"L {length}, band {band}: not the wide route")
+        cost = torch.randn(n, length, m_, device=dev, generator=gen) + 2.0
+        lens = torch.from_numpy(rng.integers(length // 2, m_ + 1, n).astype(np.int32)).to(dev)
+        lens[0] = m_
+        ids = torch.from_numpy(rng.integers(0, 64, n).astype(np.int32)).to(dev)
+        ctab = torch.randn(64, length, device=dev, generator=gen)
+        tag = (f"wide route, window {min(2 * band + 1, length)}: L {length}, band {band}, "
+               f"{n} pairs, m {m_}, WP {sched['WP']}, "
+               f"{'scratch' if sched['scratch_words'] else 'shared memory'}")
+        raw, _ = launched(lambda: kd.banded_dtw(cost, lens, band), {kd.NAME: 1},
+                          f"banded_dtw raw ({tag})")
+        check_terminals(torch, raw, kd.banded_dtw_plain(cost, lens, band),
+                        f"banded_dtw raw ({tag})")
+        args = (-cost, lens, ctab, band, ids)
+        got, _ = launched(lambda: kd.banded_dtw_scores(*args), {kd.NAME: 1},
+                          f"banded_dtw fused ({tag})")
+        want, plain_ms = time_once(torch, lambda: kd.banded_dtw_scores_plain(*args))
+        check_scores(torch, got, want, f"banded_dtw fused ({tag})")
+        check(bool(torch.equal(got, kd.banded_dtw_scores(*args))),
+              f"banded_dtw ({tag}): two launches differ")
+        cells = band_cells(torch, length, m_, lens, band)
+        record(kd, 0.0, "bitwise on finite scores, -inf alike",
+               time_ms(torch, lambda: kd.banded_dtw_scores(*args), reps=5, warm=1),
+               plain_ms, None, cells * 4 + int(torch.unique(ids).numel()) * length * 4 + n * 12,
+               5 * cells, FP32_FLOPS, shape=f"fused, {tag}")
+        rows[-1]["launches"] = 1
+        raw_ms = time_ms(torch, lambda: kd.banded_dtw(cost, lens, band), reps=5, warm=1)
+        say(f"banded_dtw ({tag}): raw and fused bitwise; raw {raw_ms:.4f} ms; the chain is "
+            f"{length + m_ - 1} diagonals: {raw_ms * 1e6 / (length + m_ - 1):.1f} ns a diagonal")
+        if length == DOMAIN_DTW[0][0]:
+            # the state in scratch (as past 12,288 window positions), forced
+            # here by a shared-memory budget of 0: bitwise the run above
+            saved = kd.WIDE_SMEM_WORDS
+            kd.WIDE_SMEM_WORDS = 0
+            try:
+                check(kd.wide_schedule(length, m_, band)["scratch_words"] > 0,
+                      "the forced scratch route takes no scratch")
+                again, _ = launched(lambda: kd.banded_dtw_scores(*args), {kd.NAME: 1},
+                                    f"banded_dtw fused ({tag}, state in scratch)")
+                scratch_ms = time_ms(torch, lambda: kd.banded_dtw_scores(*args), reps=5, warm=1)
+            finally:
+                kd.WIDE_SMEM_WORDS = saved
+            check(bool(torch.equal(again, got)), f"banded_dtw ({tag}): the state in scratch "
+                                                 f"gives other scores")
+            say(f"banded_dtw ({tag}) with its state in scratch (global memory): bitwise; "
+                f"{scratch_ms:.4f} ms")
+        del cost, args, ctab, raw, got, want
+        torch.cuda.empty_cache()
+
+    # ---- kernels 3, 4, 10, 11 at D % 8 != 0 and at a base 2 bytes off --
+    def offset(t):
+        """t's values in a contiguous view whose base is one element past
+        a 16-byte aligned one (2 bytes for bf16, 1 for bool)."""
+        buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=dev)
+        v = buf[1 : 1 + t.numel()].view(t.shape)
+        v.copy_(t)
+        check(v.data_ptr() % 16 == t.element_size(), "the offset view is aligned")
+        return v
+
+    b_, t_, k_, l_ = 2, 600, 130, 32
+    nfft = fs.pick_nfft(l_, k_)
+    hop, bins = nfft - l_ + 1, nfft // 2 + 1
+    nblk = -(-(t_ - l_ + 1) // hop)
+    g = fs._dft_basis(nfft, torch.bfloat16, dev)
+    for d_ in DOMAIN_D + ("base",):
+        dd = 512 if d_ == "base" else d_
+        x = (torch.rand(b_, t_, dd, device=dev, generator=gen) < 0.3).to(torch.bfloat16)
+        w = torch.randn(k_, l_, dd, device=dev, generator=gen).to(torch.bfloat16)
+        c = torch.randn(k_, device=dev, generator=gen)
+        fmap = x.bool()
+        if d_ == "base":
+            x, w = offset(x), offset(w)
+            fmap = offset(fmap)
+        tag = f"D {dd}, base 2 bytes off" if d_ == "base" else f"D {dd}"
+        # kernel 10
+        got, _ = launched(lambda: kc.correlation_scores(x, w, c), {kc.NAME: 1},
+                          f"correlation ({tag})")
+        err10 = close(got, kc.correlation_scores_plain(x, w, c), 1e-5, f"correlation ({tag})")
+        # kernel 11: windows of 40 frames, into the next utterance and past
+        # the map's end
+        rs = torch.from_numpy(rng.integers(0, b_ * t_, 200).astype(np.int32)).to(dev)
+        rs[:3] = torch.tensor([t_ - 5, b_ * t_ - 3, 0], dtype=torch.int32)
+        ids = torch.from_numpy(rng.integers(0, k_, 200).astype(np.int32)).to(dev)
+        got11, _ = launched(lambda: kp.pair_llr(fmap, w, rs, ids, 40), {kp.NAME: 1},
+                            f"pair_llr ({tag})")
+        err11 = close(got11, kp.pair_llr_plain(fmap, w, rs, ids, 40), 1e-5, f"pair_llr ({tag})")
+        # kernel 3, then kernel 4 on its spectra with a W2 of the same D
+        (xr, xi), _ = launched(lambda: k3.fft_block_dft(x, g, nfft, hop, nblk), {k3.NAME: 1},
+                               f"fft_block_dft ({tag})")
+        ref3 = k3.fft_block_dft_plain(x, g, nfft, hop, nblk)
+        err3 = max(close(a, r, 2.0 ** -7, f"fft_block_dft ({tag})") for a, r in zip((xr, xi), ref3))
+        w2 = torch.randn(bins, 2 * dd, 136, device=dev, generator=gen).to(torch.bfloat16)
+        if d_ == "base":
+            xr, xi, w2 = offset(xr.contiguous()), xi, offset(w2)
+        y, _ = launched(lambda: k4.fft_binmm(xr, xi, w2), {k4.NAME: 1}, f"fft_binmm ({tag})")
+        err4 = close(y, k4.fft_binmm_plain(xr, xi, w2), 2.0 ** -7, f"fft_binmm ({tag})")
+        say(f"{tag}: correlation {err10:.3g}, pair_llr {err11:.3g}, fft_block_dft "
+            f"{err3:.3g}, fft_binmm {err4:.3g} max abs error, each one launch of its kernel "
+            f"on rows padded to D8")
+        if d_ == DOMAIN_D[0]:
+            # the timed rows at D 500, the padding copy inside each
+            m_ = b_ * nblk
+            tv = t_ - l_ + 1
+            wt = w.transpose(1, 2).contiguous()
+            xt = x.transpose(1, 2).contiguous()
+            record(kc, err10, "1e-5 * max|plain|",
+                   time_ms(torch, lambda: kc.correlation_scores(x, w, c), loop=10),
+                   time_ms(torch, lambda: kc.correlation_scores_plain(x, w, c)),
+                   time_ms(torch, lambda: torch.nn.functional.conv1d(xt, wt), loop=10),
+                   x.numel() * 2 + w.numel() * 2 + k_ * 4 + b_ * k_ * tv * 4,
+                   2 * b_ * k_ * tv * l_ * dd, BF16_FLOPS,
+                   shape=f"D {dd}: B {b_}, T {t_}, K {k_}, L {l_}, padded to D8")
+            rows[-1]["launches"] = 1
+            seg = fmap.reshape(-1, dd)[rs.long().clamp(max=b_ * t_ - 41)[:, None]
+                                       + torch.arange(40, device=dev)].to(torch.bfloat16)
+            wk = w[ids.long()]
+            record(kp, err11, "1e-5 * max|ref|",
+                   time_ms(torch, lambda: kp.pair_llr(fmap, w, rs, ids, 40), loop=10),
+                   time_ms(torch, lambda: kp.pair_llr_plain(fmap, w, rs, ids, 40)),
+                   time_ms(torch, lambda: torch.bmm(wk, seg.transpose(1, 2)), loop=10),
+                   fmap.numel() + w.numel() * 2 + 200 * 8 + got11.numel() * 4,
+                   2 * 200 * l_ * 40 * dd, BF16_FLOPS,
+                   shape=f"D {dd}: 200 pairs, L {l_}, m 40, padded to D8")
+            rows[-1]["launches"] = 1
+            record(k3, err3, "2^-7 * max|ref|",
+                   time_ms(torch, lambda: k3.fft_block_dft(x, g, nfft, hop, nblk), loop=10),
+                   time_ms(torch, lambda: k3.fft_block_dft_plain(x, g, nfft, hop, nblk)), None,
+                   x.numel() * 2 + g.numel() * 2 + 2 * bins * m_ * dd * 2,
+                   2 * (2 * bins) * nfft * m_ * dd, BF16_FLOPS,
+                   shape=f"D {dd}: B {b_}, T {t_}, nfft {nfft}, padded to D8")
+            rows[-1]["launches"] = 1
+            x2 = torch.cat([torch.cat([xr, xi], -1), torch.cat([xi, -xr], -1)], 1).reshape(
+                bins, 2 * m_, 2 * dd)
+            record(k4, err4, "2^-7 * max|ref|",
+                   time_ms(torch, lambda: k4.fft_binmm(xr, xi, w2), loop=10),
+                   time_ms(torch, lambda: k4.fft_binmm_plain(xr, xi, w2)),
+                   time_ms(torch, lambda: torch.bmm(x2, w2), loop=10),
+                   2 * bins * m_ * dd * 2 + w2.numel() * 2 + 2 * bins * m_ * 136 * 2,
+                   2 * (2 * m_) * (2 * dd) * 136 * bins, BF16_FLOPS,
+                   shape=f"D {dd}: bins {bins}, m {m_}, K 136, operands padded to D8")
+            rows[-1]["launches"] = 1
+            pad_ms = time_ms(torch, lambda: _cuda.aligned_rows(x), loop=10)
+            x504 = torch.zeros((b_, t_, 504), dtype=torch.bfloat16, device=dev)
+            check(_cuda.aligned_rows(x504) is x504, "D 504: the wrapper's rows were copied")
+            say(f"the padding copy at D {dd} (a map [{b_}, {t_}, {dd}] bf16 to D8): "
+                f"{pad_ms:.4f} ms; at D 504 from an aligned base no copy")
+        del x, w, fmap, xr, xi, y, got, got11
+    # the whole FFT scorer with a D 36 bank (its spectra padded to D8
+    # rows a half at build) against its plain run, 4e-3 of max|score|
+    d36 = DOMAIN_D[1]
+    wb = torch.randn(k_, l_, d36, device=dev, generator=gen)
+    cb = torch.randn(k_, device=dev, generator=gen)
+    bank = fs.build_fft_bank(wb, cb, mm_dtype=torch.bfloat16)
+    check(bank.dp == 40 and bank.w2.shape[1] == 80, f"D 36 bank: dp {bank.dp}")
+    xs = (torch.rand(b_, t_, d36, device=dev, generator=gen) < 0.3)
+    got, counts = launched(lambda: fs.fft_sliding_scores(xs, bank),
+                           {k3.NAME: 1, k4.NAME: 1, "fft_idft": 1}, "fft_sliding_scores (D 36)")
+    close(got, fs.fft_sliding_scores(xs, bank, plain=True), 4e-3, "fft_sliding_scores (D 36)")
+    say(f"fft_sliding_scores with a D 36 bank: within 4e-3 x max|score| of its plain run; "
+        f"launches {counts}")
+    # and on int8 spectra: kernel 6 behind kernel 3's padded D, within the
+    # int8 class (1e-2 x max|score|)
+    bank8 = fs.build_fft_bank(wb, cb, mm_dtype=torch.int8)
+    check(tuple(bank8.w2_kmajor.shape[-1:]) == (48,), f"D 36 int8 bank: {bank8.w2_kmajor.shape}")
+    got, counts = launched(lambda: fs.fft_sliding_scores(xs, bank8),
+                           {k3.NAME: 1, k4.INT8_NAME: 1, "fft_idft": 1},
+                           "fft_sliding_scores (D 36, int8)")
+    close(got, fs.fft_sliding_scores(xs, bank8, plain=True), 1e-2,
+          "fft_sliding_scores (D 36, int8)")
+    say(f"fft_sliding_scores with a D 36 int8 bank: within 1e-2 x max|score| of its plain run; "
+        f"launches {counts}")
+    del bank, bank8, got, xs
+    torch.cuda.empty_cache()
+
+    # ---- kernel 10 past int32 extents ----------------------------------
+    t_r, l_r = DOMAIN_ROWS
+    tv_r = t_r - l_r + 1
+    b_r = DOMAIN_ROW_LIMIT // tv_r + 1        # rows b*T'' + t pass 2^31 at b = 2^31 / T''
+    feats = torch.empty((b_r, t_r, 8), dtype=torch.bfloat16, device=dev)
+    feats.bernoulli_(0.3, generator=gen)
+    w = torch.randn(1, l_r, 8, device=dev, generator=gen).to(torch.bfloat16)
+    c = torch.randn(1, device=dev, generator=gen)
+    tag = f"B*T'' {b_r * tv_r} (past 2^31): B {b_r}, T {t_r}, D 8, K 1, L {l_r}"
+    out, ms_r = time_once(torch, lambda: launched(lambda: kc.correlation_scores(feats, w, c),
+                                                  {kc.NAME: 1}, f"correlation ({tag})")[0])
+    run = max(1, b_r // 16)
+
+    def plain_runs():
+        """The plain version over runs of utterances (a float32 copy of the
+        whole map would not fit), each held to the kernel's scores."""
+        errs, tops = [], []
+        for b0 in range(0, b_r, run):
+            want = kc.correlation_scores_plain(feats[b0 : b0 + run], w, c)
+            errs.append((out[b0 : b0 + run] - want).abs().amax(dim=(1, 2)))
+            tops.append(want.abs().max())
+        return torch.cat(errs), max(float(t) for t in tops)
+
+    (errs, top), plain_ms = time_once(torch, plain_runs)
+    edge = DOMAIN_ROW_LIMIT // tv_r
+    err = float(errs.max())
+    check(err <= 1e-5 * top, f"correlation ({tag}): {err} > 1e-5 * {top}")
+    record(kc, err, "1e-5 * max|plain|", ms_r, plain_ms, None,
+           feats.numel() * 2 + w.numel() * 2 + 4 + out.numel() * 4,
+           2 * b_r * tv_r * l_r * 8, BF16_FLOPS, shape=tag)
+    rows[-1]["launches"] = 1
+    say(f"correlation ({tag}): {feats.numel() * 2 / 1e9:.1f} GB of map, one launch "
+        f"{ms_r:.1f} ms; every utterance within 1e-5 x max|plain| of the plain version (run "
+        f"over {run} utterances at a time, with the comparison: {plain_ms:.1f} ms); utterances "
+        f"{edge - 1} and {edge}, whose rows lie either side of 2^31: max abs error "
+        f"{float(errs[edge - 1]):.3g} and {float(errs[edge]):.3g}")
+    del feats, out
+    torch.cuda.empty_cache()
+    l_d, d_d = DOMAIN_LD
+    t_d = l_d + 191                            # T'' 192: one tile of starts
+    x = (torch.rand(1, t_d, d_d, device=dev, generator=gen) < 0.3).to(torch.bfloat16)
+    w = (torch.randn(1, l_d, d_d, device=dev, generator=gen) * 0.01).to(torch.bfloat16)
+    tag = f"L*D {l_d * d_d} (past 2^31): B 1, T {t_d}, D {d_d}, K 1, L {l_d}"
+    out, ms_d = time_once(torch, lambda: launched(lambda: kc.correlation_scores(x, w, c),
+                                                  {kc.NAME: 1}, f"correlation ({tag})")[0])
+    want, plain_ms = time_once(torch, lambda: kc.correlation_scores_plain(x, w, c))
+    # 2^31 products a score: held to the reference's bf16 class, 4e-3 x
+    # max|score|; both beside a float64 evaluation (one shift at a time)
+    err = close(out, want, 4e-3, f"correlation ({tag})")
+    ref64 = torch.zeros(192, dtype=torch.float64, device=dev)
+    for tau in range(l_d):
+        ref64 += x[0, tau : tau + 192].double() @ w[0, tau].double()
+    ref64 += float(c[0])
+    top64 = float(ref64.abs().max())
+    e_k = float((out[0, 0].double() - ref64).abs().max()) / top64
+    e_p = float((want[0, 0].double() - ref64).abs().max()) / top64
+    record(kc, err, "4e-3 * max|plain| (2^31 products a score)", ms_d, plain_ms, None,
+           x.numel() * 2 + w.numel() * 2 + 4 + out.numel() * 4,
+           2 * 192 * l_d * d_d, BF16_FLOPS, shape=tag)
+    rows[-1]["launches"] = 1
+    say(f"correlation ({tag}): one launch {ms_d:.1f} ms (one block: {l_d} x {d_d // 64} "
+        f"steps, the split sums), plain {plain_ms:.1f} ms; kernel to plain {err / top64:.3g}, "
+        f"kernel to float64 {e_k:.3g}, plain to float64 {e_p:.3g} of max|score| {top64:.6g}")
+    del x, w, out, want, ref64
+    torch.cuda.empty_cache()
+    say(f"domain phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def main(domain_only: bool = False) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -3157,6 +3559,10 @@ def main() -> int:
             f"host time) {time_ms(torch, run):.4f} ms; kernel {share:.3f} of its bound; "
             f"two launches bitwise equal; {plan}")
         return got
+
+    if domain_only:
+        domain_phase(torch, say, dev, wavs, nvalid, record, rows)
+        return finish(torch, card, rows, say, t_start)
 
     # kernel 1: response planes (tolerances: check_planes)
     planes = k1.edge_response_planes(frames2, fcfg.nfft)
@@ -3893,6 +4299,9 @@ def main() -> int:
                  flips["default"], record, rows, mods)
     torch.cuda.empty_cache()
 
+    # ---- inputs that only the reference scored before -------------------
+    domain_phase(torch, say, dev, wavs, nvalid, record, rows)
+
     # ---- the sharded scan and EM: parallel/ on torch.distributed -------
     t0 = time.perf_counter()
     sharded_phase(torch, say, dev, C, corpus, bank,
@@ -3905,6 +4314,10 @@ def main() -> int:
     timit_phase(torch, say, dev, C, bank, bank_build, rows, _cuda)
     say(f"TIMIT phase: {time.perf_counter() - t0:.1f} s")
 
+    return finish(torch, card, rows, say, t_start)
+
+
+def finish(torch, card, rows, say, t_start) -> int:
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)
@@ -3919,7 +4332,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--sharded-worker"]:
         sys.exit(sharded_worker(sys.argv[2]))
     try:
-        sys.exit(main())
+        sys.exit(main(domain_only=sys.argv[1:2] == ["--domain"]))
     except CheckFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         sys.exit(1)

@@ -30,7 +30,15 @@ Variants (all of them, or those named), built into
   dependent shuffles, two ``fminf`` and one add, nothing read from
   memory; ``chain_grid``: that chain in as many warps as the kernel
   runs (two pairs a warp);
-* ``empty``: an empty kernel, the launch floor of a loop of launches.
+* ``empty``: an empty kernel, the launch floor of a loop of launches;
+* ``wide``: the source as it is at the wide route's shapes (windows past
+  511 rows: ``w601``, 132 pairs of L 601, m 641, band 300; ``w1101``, 132
+  pairs of L 1101, m 1141, band 550; seg_len in [L/2, m]), raw and
+  fused, held bitwise to the plain versions there;
+* ``wide_chain``: the wide route's chain floor: as many blocks, each
+  L + m - 1 steps over the same window positions (two shared-memory
+  reads, two fminf, one add and two stores a position, one block
+  barrier a step), no cell or c word read.
 
 The kernel variants are first held bitwise (finite terminals and scores)
 to the plain versions at 8 shapes (the scan's, L 96, m 1024, band 100 at
@@ -65,8 +73,12 @@ FLAGS = {"kernel": [], "unroll1": ["-DDTW_UNROLL=1"], "unroll8": ["-DDTW_UNROLL=
          "ring": ["-DDTW_NO_TILE"], "ring2": ["-DDTW_NO_TILE", "-DDTW_STAGES=2"],
          "stage_tile": ["-DDTW_STAGE_ONLY"], "stage_ring": ["-DDTW_STAGE_ONLY", "-DDTW_NO_TILE"],
          "chain_nocopy": ["-DDTW_NO_COPY", "-DDTW_NO_TILE"], "prologue": ["-DDTW_PROLOGUE_ONLY"]}
+FLAGS["wide"] = []
 CHECKED = ("kernel", "unroll1", "unroll8", "ring", "ring2")
-EMBEDDED = ("stage_old", "chain", "chain_grid", "empty")
+EMBEDDED = ("stage_old", "chain", "chain_grid", "empty", "wide_chain")
+# the wide route's timed shapes: tag -> (L, m, band)
+WIDE_SHAPES = {"w601": (601, 641, 300), "w1101": (1101, 1141, 550)}
+N_WIDE = 132
 VARIANTS = tuple(FLAGS) + EMBEDDED
 
 # staging a row at a time (a load, then the shared store that waits on
@@ -113,6 +125,28 @@ __global__ void chain(float* out, int steps) {
   out[blockIdx.x * blockDim.x + threadIdx.x] = p;
 }
 __global__ void empty(float*) {}
+__global__ void wide_chain(float* out, int wp, int steps) {
+  extern __shared__ float st[];
+  const int stride = wp + 2, T = blockDim.x;
+  for (int u = threadIdx.x; u < 4 * stride; u += T) st[u] = 1.f;
+  __syncthreads();
+  int d = 0;
+  for (int k = 0; k < steps; ++k) {
+    const float* pp = st + ((k + 1) & 1) * 2 * stride;
+    const float* qp = pp + stride;
+    float* pc = st + (k & 1) * 2 * stride;
+    float* qc = pc + stride;
+    for (int w = threadIdx.x; w < wp; w += T) {
+      const float up = pp[w + d], lq = qp[w + d + 1];
+      const float v = __fadd_rn(fminf(up, lq), 1.f);
+      pc[w + 1] = v;
+      qc[w + 1] = fminf(v, up);
+    }
+    d = k & 1;
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) out[blockIdx.x] = st[1];
+}
 extern "C" const char* tsr_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
@@ -129,6 +163,12 @@ extern "C" int probe_stage_old(const void* cost, const void* lens, void* out, in
 extern "C" int probe_chain(void* out, int warps, int steps, void* stream) {
   chain<<<(warps + 3) / 4, 128, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(out), steps);
+  return cudaGetLastError();
+}
+extern "C" int probe_wide_chain(void* out, int blocks, int wp, int steps, void* stream) {
+  const int threads = min(1024, (wp + 31) / 32 * 32);
+  wide_chain<<<blocks, threads, 16 * (wp + 2), static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(out), wp, steps);
   return cudaGetLastError();
 }
 extern "C" int probe_empty(void* out, void* stream) {
@@ -236,6 +276,46 @@ def check_kernel(torch, kd, lib, dev):
     return held
 
 
+def run_wide(torch, kd, _cuda, lib, dev, name, row) -> dict:
+    """The wide route (``wide``: raw and fused, each held bitwise to the
+    plain version first) or its chain floor (``wide_chain``) at
+    ``WIDE_SHAPES``, over loops of 10 launches."""
+    import numpy as np
+
+    for tag, (length, m, band) in WIDE_SHAPES.items():
+        rng = np.random.default_rng(SEED + length)
+        steps = length + m - 1
+        row[f"{tag}_steps"] = steps
+        if name == "wide_chain":
+            wp = kd.wide_schedule(length, m, band)["WP"]
+            out = torch.empty(N_WIDE, device=dev)
+            fn = _cuda.declare(lib, "probe_wide_chain", 1, 3)
+            stream = _cuda.stream_ptr(dev)
+            call = lambda: _cuda.check(lib, fn(_cuda.ptr(out), N_WIDE, wp, steps, stream),  # noqa: E731
+                                       name)
+            row[f"{tag}_loop10_ms"] = time_ms(torch, call, loop=10)
+            continue
+        llr = torch.from_numpy(
+            (rng.standard_normal((N_WIDE, length, m)) - 2.0).astype(np.float32)).to(dev)
+        lens = torch.from_numpy(rng.integers(length // 2, m + 1, N_WIDE).astype(np.int32)).to(dev)
+        c_rows = torch.randn(K, length, device=dev)
+        ids = torch.from_numpy(rng.integers(0, K, N_WIDE).astype(np.int32)).to(dev)
+        cost = -(llr + c_rows[ids.long()][:, :, None])
+        raw = lambda: kd._launch(cost[:, None], lens, None, None, band, False, lib=lib)  # noqa: E731
+        fused = lambda: kd._launch(llr[:, None], lens, c_rows, ids, band, True, lib=lib)  # noqa: E731
+        want = kd.banded_dtw_plain(cost, lens, band)
+        fin = want < 1e37
+        if not (bool(fin.any()) and torch.equal(raw()[fin], want[fin])):
+            raise RuntimeError(f"wide raw mode at {tag}: not bitwise")
+        want_s = kd.banded_dtw_scores_plain(llr, lens, c_rows, band, ids)
+        fin = torch.isfinite(want_s)
+        if not torch.equal(fused()[fin], want_s[fin]):
+            raise RuntimeError(f"wide fused mode at {tag}: not bitwise")
+        row[f"{tag}_loop10_ms"] = time_ms(torch, raw, loop=10)
+        row[f"{tag}_fused_loop10_ms"] = time_ms(torch, fused, loop=10)
+    return row
+
+
 def run_variant(name: str, so: str) -> dict:
     import torch
 
@@ -247,6 +327,8 @@ def run_variant(name: str, so: str) -> dict:
     lib.tsr_cuda_error_string.restype = ctypes.c_char_p
     dev = torch.device("cuda")
     row = {"variant": name}
+    if name in ("wide", "wide_chain"):
+        return run_wide(torch, kd, _cuda, lib, dev, name, row)
     if name in CHECKED:
         row["bitwise_pairs"] = check_kernel(torch, kd, lib, dev)
     for tag, (length, m, _lo, _hi) in SHAPES.items():

@@ -11,7 +11,10 @@ import torch
 
 from template_speech_recognition_tpu_torch.detect.fft_scorer import FFTBank
 from template_speech_recognition_tpu_torch.models.bank import TemplateBank
-from template_speech_recognition_tpu_torch.ops.fft_binmm_kernel import kmajor_spectra
+from template_speech_recognition_tpu_torch.ops.fft_binmm_kernel import (
+    kmajor_spectra,
+    pad_spectra,
+)
 from template_speech_recognition_tpu_torch.utils.device import resolve_device
 
 
@@ -44,9 +47,11 @@ def fft_bank_from_numpy(w2, c, length: int, nfft: int, d: int,
     """A JAX-built ``FFTBank``'s spectra ``w2`` [bins, 2D, K] (dtype
     kept: float32, bfloat16 or int8), offsets ``c`` [K] and, for int8
     spectra, their scales ``w2_scale`` [bins, K]; int8 spectra also get
-    their K-major copy (``FFTBank.w2_kmajor``), built here once."""
+    their K-major copy (``FFTBank.w2_kmajor``), built here once.  Each
+    half of the spectra is padded to D8 rows, as ``build_fft_bank``
+    pads its own, so both banks are one bank."""
     dev = resolve_device(device)
-    w2t = _tensor(w2, dev)
+    w2t = pad_spectra(_tensor(w2, dev), int(d))
     quant = w2_scale is not None
     return FFTBank(
         w2=w2t, c=_tensor(c, dev, torch.float32),

@@ -78,6 +78,10 @@
 // ops/dtw_kernel.py's plain versions on the same llr (fminf is exact
 // in any order here: no D is NaN or -0.0).
 //
+// Windows past 32 x 16 positions (min(2*band+1, L) > 511) take the wide
+// route below (banded_dtw_wide_kernel): one pair a block, the band over
+// the block's threads, one block barrier a diagonal.
+//
 // What bounds it on the H100: neither bytes nor operations.  At the
 // scan's shape (984 pairs, L 32, m 40, band 6) the in-band cells are
 // 1.4 MB (0.0004 ms at 3.35 TB/s); the limit is the chain of
@@ -493,6 +497,114 @@ banded_dtw_kernel(const float* __restrict__ llr, const float* __restrict__ c_tab
   }
 }
 
+// The wide route: a window past 32 x 16 positions (min(2*band+1, L) >
+// 511), or band expressions past int32.  One pair a block, the window's
+// positions [0, WP) spread over the block's threads (position w in
+// thread w % T), WP >= min(2*band+1, L, M) + 1: no diagonal has more
+// in-band rows than that, nor (positions past seg_len - 1 hold j < 0)
+// more than M, and the top position is spare, never in band.  A
+// diagonal's D and Q = min(D, up) go to shared memory (or, past
+// WIDE_SMEM_WORDS, to the pair's slice of a scratch buffer the wrapper
+// allocates), double-buffered by diagonal, with an unreachable word at
+// positions -1 and WP; one __syncthreads a diagonal.  A position reads
+// up = D[w + d - 1] and lq = Q[w + d] of the diagonal before, the same
+// operands the shuffles give the narrow route, and its cell straight
+// from the tile (any strides) and its c word from c_tab, both through
+// the read-only cache.  The window's state (ilo, j0, e) steps by the
+// same rule, the band expression in 64 bits.  The same roundings in the
+// same order as the narrow route: terminals bitwise the plain version's.
+// Correctness first: the chain pays a block barrier and a cache read a
+// diagonal.
+constexpr int WIDE_MIN_WINDOW = 512;       // min(2*band+1, L) from which pairs go wide
+constexpr int WIDE_MAX_THREADS = 1024;
+constexpr int WIDE_SMEM_WORDS = 4 * (12288 + 2);   // state of WP <= 12,288 in shared memory
+
+template <bool FUSED>
+__global__ void __launch_bounds__(WIDE_MAX_THREADS)
+banded_dtw_wide_kernel(const float* __restrict__ llr, const float* __restrict__ c_tab,
+                       const int* __restrict__ cid, const int* __restrict__ seg_lens,
+                       float* __restrict__ out, float* __restrict__ scratch, long long s_b,
+                       long long s_q, long long s_i, long long s_j, int inner, int L, int M,
+                       int n_rows, int band, int WP) {
+  extern __shared__ __align__(16) float smem[];
+  const int n = blockIdx.x, tid = threadIdx.x, T = blockDim.x;
+  const int stride = WP + 2;
+  // [P, Q] of even diagonals, then of odd ones; word w + 1 holds
+  // position w, words 0 and WP + 1 stay unreachable
+  float* st = scratch ? scratch + (size_t)n * 4 * stride : smem;
+  for (int u = tid; u < 4 * stride; u += T) st[u] = UNREACHABLE;
+  __syncthreads();
+  // D[0, 0] = cost[0, 0]: diagonal 0 reads Q of diagonal -1 (the odd
+  // buffer) at position 0 as 0
+  if (tid == 0) st[3 * stride + 1] = 0.f;
+
+  const int b = inner == 1 ? n : n / inner, q = n - b * inner;
+  const float* src = llr + b * s_b + q * s_q;
+  const int mlen = seg_lens[b];
+  const float* crow = FUSED ? c_tab + (long long)(cid ? cid[n] : n % n_rows) * L : nullptr;
+  const int kmax = (mlen >= 1 && mlen <= M) ? L - 1 + mlen - 1 : -1;
+  const long long lm1 = max(L - 1, 1), mm1 = max(mlen - 1, 1), den = lm1 + mm1;
+  const long long bw = (long long)band * lm1;
+  int ilo = 0, j0 = 0, d = 0;
+  long long e = 0;
+  float term = UNREACHABLE;
+  __syncthreads();
+  for (int k = 0; k <= kmax; ++k) {
+    const float* pp = st + ((k + 1) & 1) * 2 * stride;
+    const float* qp = pp + stride;
+    float* pc = st + (k & 1) * 2 * stride;
+    float* qc = pc + stride;
+    for (int w = tid; w < WP; w += T) {
+      const float up = pp[w + d];           // position w + d - 1
+      const float lq = qp[w + d + 1];       // position w + d
+      const int i = ilo + w, j = j0 - w;
+      const long long x_band = e - w * den + bw;
+      float c = __int_as_float(0x7f800000);  // out of band: +inf
+      if (i < L && (unsigned)j < (unsigned)mlen && x_band >= 0 && x_band <= 2 * bw) {
+        const float x = __ldg(src + i * s_i + (long long)j * s_j);
+        c = FUSED ? -__fadd_rn(x, __ldg(crow + i)) : x;
+      }
+      const float v = fminf(__fadd_rn(c, fminf(up, lq)), UNREACHABLE);
+      pc[w + 1] = v;
+      qc[w + 1] = fminf(v, up);
+      if (w == 0 && k == kmax) term = v;
+    }
+    // the window steps to diagonal k+1 by the reference's rule
+    d = (j0 >= mlen - 1) || (e > bw - lm1);
+    ilo += d;
+    j0 += 1 - d;
+    e += d ? lm1 - den : lm1;
+    __syncthreads();
+  }
+  if (tid == 0) {
+    if (FUSED)
+      out[n] = term > 1e37f ? -__int_as_float(0x7f800000) : -term / (float)(L + mlen);
+    else
+      out[n] = term;
+  }
+}
+
+int launch_wide(bool fused, const float* llr, const float* c_tab, const int* cid,
+                const int* lens, float* out, float* scratch, long long s_b, long long s_q,
+                long long s_i, long long s_j, int n_pairs, int inner, int L, int M, int n_rows,
+                int band, int WP, cudaStream_t stream) {
+  const int threads = min(WIDE_MAX_THREADS, (WP + 31) / 32 * 32);
+  const size_t bytes = scratch ? 0 : sizeof(float) * 4 * (size_t)(WP + 2);
+  auto kernel = fused ? banded_dtw_wide_kernel<true> : banded_dtw_wide_kernel<false>;
+  static const cudaError_t opt_in[2] = {
+      cudaFuncSetAttribute(banded_dtw_wide_kernel<false>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)(sizeof(float) * WIDE_SMEM_WORDS)),
+      cudaFuncSetAttribute(banded_dtw_wide_kernel<true>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)(sizeof(float) * WIDE_SMEM_WORDS))};
+  if (opt_in[fused] != cudaSuccess) return opt_in[fused];
+  if (!scratch && 4 * (WP + 2) > WIDE_SMEM_WORDS) return cudaErrorInvalidValue;
+  kernel<<<n_pairs, threads, bytes, stream>>>(llr, c_tab, cid, lens, out, scratch, s_b, s_q,
+                                              s_i, s_j, inner, L, M, n_rows, band, WP);
+  return cudaGetLastError();
+}
+
 template <int R, bool FUSED, bool TILE, bool CCHUNK>
 int launch_one(const float* llr, const float* c_tab, const int* cid, const int* lens, float* out,
                long long s_b, long long s_q, long long s_i, long long s_j, int n_pairs,
@@ -543,19 +655,28 @@ extern "C" const char* tsr_cuda_error_string(int err) {
 // (f32, strides in elements); seg_lens [n_pairs / inner] int32 (by b);
 // c_tab [n_rows, L] f32 or NULL (raw mode: llr is the cost, out the
 // terminals); cid [n_pairs] int32 in [0, n_rows), or NULL for n % n_rows;
-// out [n_pairs] f32.  L >= 1 and min(2*band+1, L) <= 511 (R <= 16
-// registers a lane); band * max(L-1, 1) and
-// (L + M + band) * max(L-1, 1) must fit int32 (the wrapper clamps band to
-// L + M).
+// out [n_pairs] f32.  L >= 1, band >= 0 (clamped to L + M: a wider band
+// is the same band).  The narrow routes take min(2*band+1, L) <= 511 (R
+// <= 16 registers a lane) with (L + M + band) * max(L-1, 1) below 2^31;
+// every other pair goes the wide route (wide_window), whose state takes
+// scratch, 4 * (WP + 2) floats a pair, where it does not fit shared
+// memory (scratch NULL otherwise).
 extern "C" int tsr_banded_dtw(const void* llr, const void* c_tab, const void* cid,
-                              const void* seg_lens, void* out, long long s_b, long long s_q,
-                              long long s_i, long long s_j, int n_pairs, int inner, int L,
-                              int M, int n_rows, int band, void* stream) {
+                              const void* seg_lens, void* out, void* scratch, long long s_b,
+                              long long s_q, long long s_i, long long s_j, int n_pairs,
+                              int inner, int L, int M, int n_rows, int band, void* stream) {
   if (L < 1 || M < 1 || band < 0 || inner < 1 || (c_tab && n_rows < 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_pairs == 0) return 0;
   band = min(band, L + M);
-  if (min(2 * band + 1, L) > 511) return static_cast<int>(cudaErrorInvalidValue);
+  const long long lm1 = max(L - 1, 1);
+  if (min(2 * band + 1, L) >= WIDE_MIN_WINDOW || ((long long)L + M + band) * lm1 >= (1ll << 31))
+    return launch_wide(c_tab != nullptr, static_cast<const float*>(llr),
+                       static_cast<const float*>(c_tab), static_cast<const int*>(cid),
+                       static_cast<const int*>(seg_lens), static_cast<float*>(out),
+                       static_cast<float*>(scratch), s_b, s_q, s_i, s_j, n_pairs, inner, L, M,
+                       n_rows, band, min(min(2 * band + 1, L), M) + 1,
+                       static_cast<cudaStream_t>(stream));
   // the window: W = min(2*band+1, L) rows and a spare position; G lanes a
   // pair (a power of two), past 32 positions R registers a lane
   const int w = min(2 * band + 1, L) + 1;

@@ -63,6 +63,14 @@
 // has retired the previous step's reads release its W slot, and its
 // panel after a group's last step.
 //
+// Long contractions (more than LONG_STEPS steps of ceil(D / 64) * L, 4x
+// the bench shape's): wgmma cuts its f32 sums rather than rounding them,
+// and at L * D near 2^31 millions of cut additions into one accumulator
+// drift far from the plain version (0.67 of max|score| on an H100).  The
+// SPLIT build restarts the tensor cores' sum for each group of 32 shifts
+// and adds it to a second register sum with a round-to-nearest add;
+// shorter contractions keep the one accumulator (the build before it).
+//
 // Epilogue: c[k] added; the accumulator's columns are consecutive t, so
 // a thread stores 8-byte pairs along t (four lanes to a 32-byte sector),
 // 4-byte stores where a pair would be misaligned (T'' odd) or straddle
@@ -93,6 +101,7 @@ constexpr int STRIP_BYTES = PROWS * 16;  // 8 columns of a panel
 constexpr int PANEL_BYTES = 8 * STRIP_BYTES;
 constexpr int PANELS = 2;
 constexpr int STAGES = (232448 - 1024 - PANELS * PANEL_BYTES - 512) / A_BYTES;
+constexpr long long LONG_STEPS = 4096;   // contraction steps past which SPLIT sums
 constexpr int SMEM_BYTES =
     1024 + STAGES * A_BYTES + PANELS * PANEL_BYTES + 2 * (STAGES + PANELS) * 8;
 static_assert(PBOX * PBOXES == PROWS && PBOX % 8 == 0, "panel boxes of whole 128-byte units");
@@ -237,6 +246,7 @@ __device__ __forceinline__ void wgmma_n<256>(float (&d)[128], uint64_t da, uint6
       : "l"(da), "l"(db), "r"(1));
 }
 
+template <bool SPLIT>
 __global__ void __launch_bounds__(THREADS, 1)
 correlation_kernel(const __grid_constant__ CUtensorMap map_f,
                    const __grid_constant__ CUtensorMap map_w,
@@ -307,9 +317,11 @@ correlation_kernel(const __grid_constant__ CUtensorMap map_f,
     // ---- consumers: warpgroup 1 -> templates k0 .. k0+63, 2 -> the next
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     const int half = wg - 1;
-    float acc[BN / 2];
+    // SPLIT (long contractions): run holds the sum, to which acc, the
+    // tensor cores' sum of one group of shifts, is added round-to-nearest
+    float acc[BN / 2], run[BN / 2];
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < BN / 2; ++i) acc[i] = run[i] = 0.f;
     int s = 0, p = 0, prev_s = -1, prev_p = -1;
     uint32_t ph = 0, pph = 0;
     for (int dc = 0; dc < n_dc; ++dc) {
@@ -344,6 +356,16 @@ correlation_kernel(const __grid_constant__ CUtensorMap map_f,
           p = 0;
           pph ^= 1;
         }
+        if constexpr (SPLIT) {
+          asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+          fence_acc(acc);
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i) {
+            run[i] = __fadd_rn(run[i], acc[i]);
+            acc[i] = 0.f;
+          }
+          fence_acc(acc);
+        }
       }
     }
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
@@ -362,7 +384,9 @@ correlation_kernel(const __grid_constant__ CUtensorMap map_f,
 #pragma unroll
       for (int g = 0; g < BN / 8; ++g) {
         const int t = t0 + 8 * g + 2 * (lane & 3);
-        const float v0 = acc[4 * g + 2 * h] + ck, v1 = acc[4 * g + 2 * h + 1] + ck;
+        const int i0 = 4 * g + 2 * h;
+        const float v0 = (SPLIT ? run[i0] : acc[i0]) + ck;
+        const float v1 = (SPLIT ? run[i0 + 1] : acc[i0 + 1]) + ck;
         if (t + 1 < Tv && (reinterpret_cast<uintptr_t>(row + t) & 7) == 0) {
           *reinterpret_cast<float2*>(row + t) = make_float2(v0, v1);
         } else {
@@ -422,23 +446,33 @@ extern "C" const char* tsr_cuda_error_string(int err) {
 }
 
 // feats [B, T, D] bf16, w [K, L, D] bf16, c [K] f32 -> out [B, K, T-L+1]
-// f32.  D % 8 == 0 (16-byte map strides), 1 <= L <= T, B*(T-L+1) below
-// 2^31, bases 16-byte aligned.  A map that does not encode returns
-// cudaErrorInvalidValue; nothing falls back.
+// f32.  D % 8 == 0 (16-byte map strides; the wrapper pads D to 8 where
+// it is not), 1 <= L <= T, bases 16-byte aligned.  B*(T-L+1) and L*D may
+// pass 2^31: the output row offset is size_t and TMA takes 64-bit
+// strides.  A map that does not encode, or a grid past its limits,
+// returns cudaErrorInvalidValue; nothing falls back.
 extern "C" int tsr_correlation(const void* feats, const void* w, const void* c, void* out,
                                int B, int T, int D, int K, int L, void* stream) {
   CUtensorMap map_f, map_w;
   if (!make_map(&map_f, feats, D, T, B, 8, PBOX, 1, CU_TENSOR_MAP_SWIZZLE_NONE) ||
       !make_map(&map_w, w, D, L, K, BK, 1, BM, CU_TENSOR_MAP_SWIZZLE_128B))
     return cudaErrorInvalidValue;
+  const int n_dc = (D + BK - 1) / BK;
+  // a contraction past LONG_STEPS steps (4x the bench shape's 1,024)
+  // takes the SPLIT build: wgmma cuts its f32 sums, and a few million
+  // cut additions into one accumulator drift from the plain version
+  const bool split = (long long)n_dc * L > LONG_STEPS;
+  auto kernel = split ? correlation_kernel<true> : correlation_kernel<false>;
   const cudaError_t err = cudaFuncSetAttribute(
-      correlation_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return err;
   const int Tv = T - L + 1;
   const int n_tt = (Tv + BN - 1) / BN;
-  const dim3 grid((unsigned)(B * n_tt), (unsigned)((K + BM - 1) / BM));
-  correlation_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+  const long long blocks = (long long)B * n_tt, k_tiles = (K + (long long)BM - 1) / BM;
+  if (blocks >= (1ll << 31) || k_tiles >= 65536) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks, (unsigned)k_tiles);
+  kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       map_f, map_w, static_cast<const float*>(c), static_cast<float*>(out), K, Tv, L, n_tt,
-      (D + BK - 1) / BK);
+      n_dc);
   return cudaGetLastError();
 }

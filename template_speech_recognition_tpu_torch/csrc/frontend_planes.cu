@@ -68,7 +68,12 @@
 // Log-mel mode builds the power tile, adds each filter's nonzero bins,
 // in increasing order, into a [64, n_mels] accumulator (fp32 SIMT fmaf,
 // the sequence of the plain version's sum), walking a row tile's column
-// tiles in order; after the last, the log and the differences.
+// tiles in order; after the last, the log and the differences.  More
+// filters than the accumulator's room (MAX_MELS) go in chunks, one launch
+// each with its filter offset, adjacent chunks sharing one filter (the
+// differences at plane column f read filter f + 1): each filter's sum
+// keeps its order, so the chunked planes are bitwise the one-launch
+// planes; each launch recomputes the DFT.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -202,8 +207,8 @@ planes_kernel(const __grid_constant__ CUtensorMap map_x,
               const float* __restrict__ basis,    // [6, W + 1, FL]
               const float* __restrict__ fbt,      // [NM, W + 1]
               const int* __restrict__ mrange,     // [NM, 2]
-              float* __restrict__ out,            // [4, N, F]
-              int N, int FL, int W, int NM, int stages) {
+              float* __restrict__ out,            // [4, N, F_out]
+              int N, int FL, int W, int NM, int F_out, int f_off, int stages) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   uint8_t* const base_ptr = smem_raw + (base - smem_u32(smem_raw));
@@ -371,14 +376,14 @@ planes_kernel(const __grid_constant__ CUtensorMap map_x,
         const int F = NM ? NM - 1 : W;
         const int f0 = NM ? 0 : c0;
         const int fn = min(NM ? F : BN, F - f0);
-        const size_t plane = (size_t)N * F;
+        const size_t plane = (size_t)N * F_out;
         for (int idx = ct; idx < TM * fn; idx += 256) {
           const int r = idx / fn, j = idx - r * fn;
           const int row = r0 + r;
           if (row >= N) continue;
           const float* cur = spec + r * ld;
           const float* nxt = row + 1 < N ? cur + ld : cur;
-          const size_t o = (size_t)row * F + f0 + j;
+          const size_t o = (size_t)row * F_out + f_off + f0 + j;
           out[o] = nxt[j] - cur[j];                   // d_time
           out[plane + o] = cur[j + 1] - cur[j];       // d_freq
           out[2 * plane + o] = nxt[j + 1] - cur[j];   // d_diag
@@ -450,13 +455,17 @@ extern "C" int tsr_frontend_planes_smem(int NM) {
 
 // frames [N, FL] f32 (FL % 4 == 0, 16-byte aligned), basis [6, W + 1,
 // FL] f32 (cos-hi, cos-lo, sin-hi, sin-lo, cos, sin; -sin, in fact) ->
-// out [4, N, F] f32.  Log-magnitude mode (NM == 0): F = W; fbt and
+// the F plane columns [f_off, f_off + F) of out [4, N, F_out] f32.
+// Log-magnitude mode (NM == 0): F = W (F_out = W, f_off = 0); fbt and
 // mrange are unused.  Log-mel mode (NM >= 2): fbt [NM, W + 1] f32 is the
 // transposed mel filterbank, mrange [NM, 2] int32 each filter's nonzero
-// bins [lo, hi), and F = NM - 1.
+// bins [lo, hi), and F = NM - 1.  A filterbank of more than the shared
+// memory's filters is launched in chunks (the wrapper): NM filters
+// c0 .. c0 + NM - 1 of it, f_off = c0, giving plane columns c0 ..
+// c0 + NM - 2; adjacent chunks share one filter.
 extern "C" int tsr_frontend_planes(const float* frames, const float* basis, const float* fbt,
                                    const int* mrange, float* out, int N, int FL, int W, int NM,
-                                   void* stream) {
+                                   int F_out, int f_off, void* stream) {
   const int bins = W + 1;
   CUtensorMap map_x, map_b;
   if (!make_map(&map_x, frames, 2, FL, N, 1, BM, CU_TENSOR_MAP_SWIZZLE_NONE) ||
@@ -476,6 +485,6 @@ extern "C" int tsr_frontend_planes(const float* frames, const float* basis, cons
   const int n_rt = (N + TM - 1) / TM;
   const int n_work = NM ? n_rt : n_rt * ((W + BN - 1) / BN);
   planes_kernel<<<min(n_work, sms), THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      map_x, map_b, basis, fbt, mrange, out, N, FL, W, NM, stages);
+      map_x, map_b, basis, fbt, mrange, out, N, FL, W, NM, F_out, f_off, stages);
   return cudaGetLastError();
 }

@@ -256,7 +256,8 @@ extern "C" const char* tsr_cuda_error_string(int err) {
 
 // feats [R, D] bool (uint8), w [K, L, D] bf16, rowstart [N] int32, ids
 // [N] int32 -> out [N, L, m] f32; block b takes pair b.  D % 8 == 0 (D =
-// 8 F' edge channels: 504 at log-mel n_mels 64), 16-byte aligned bases.
+// 8 F' edge channels: 504 at log-mel n_mels 64; the wrapper pads any
+// other D to 8), 16-byte aligned bases.
 extern "C" int tsr_pair_llr(const void* feats, const void* w, const void* rowstart,
                             const void* ids, void* out, int R, int N, int K, int L, int D,
                             int m, void* stream) {

@@ -41,6 +41,7 @@ from template_speech_recognition_tpu_torch.ops.fft_binmm_kernel import (
     fft_binmm_plain,
     int8_row_width,
     kmajor_spectra,
+    pad_spectra,
 )
 from template_speech_recognition_tpu_torch.ops.fft_dft_kernel import (
     fft_block_dft,
@@ -78,7 +79,11 @@ class FFTBank:
     On the card the kernels take K only in multiples of 8 (16-byte rows
     of bf16 output), so a bank of another K carries zero templates up to
     the next multiple (``k``: the spectra's columns); ``num_templates``
-    is the bank's own K, the scores' width."""
+    is the bank's own K, the scores' width.  Their TMA rows want D in
+    multiples of 8 too, so on every device each half of ``w2`` holds D8
+    = ceil(D/8)*8 rows, zeros past D (``dp``; ``d`` stays the map's D):
+    ``fft_sliding_scores`` pads the map to ``dp`` columns once a call,
+    and the padded columns multiply zeros."""
 
     w2: torch.Tensor
     c: torch.Tensor
@@ -92,6 +97,11 @@ class FFTBank:
     @property
     def k(self) -> int:
         return self.w2.shape[-1]
+
+    @property
+    def dp(self) -> int:
+        """Rows a half of ``w2``: D rounded up to 8."""
+        return self.w2.shape[1] // 2
 
 
 def _dft_mats(nfft: int, dtype, device=None):
@@ -168,7 +178,8 @@ def build_fft_bank(w: torch.Tensor, c: torch.Tensor, nfft: int | None = None,
     ``torch.int8`` builds the int8 spectra: symmetric per-(bin,
     template) scales ``max(max|w2| over 2D, 1e-30) / 127`` and
     ``clip(round(w2 / scale), -127, 127)`` (round half to even, as the
-    reference)."""
+    reference).  Each half of the spectra is padded to D8 rows
+    (``FFTBank.dp``)."""
     if mm_dtype is None:
         mm_dtype = torch.bfloat16 if w.device.type == "cuda" else torch.float32
     if mm_dtype not in (torch.float32, torch.bfloat16, torch.int8):
@@ -187,13 +198,12 @@ def build_fft_bank(w: torch.Tensor, c: torch.Tensor, nfft: int | None = None,
         w2f = _bank_spectra(w, nfft, torch.float32)
         scale = torch.clamp(w2f.abs().amax(dim=1), min=1e-30) / 127.0   # [bins, K]
         w2q = torch.clamp(torch.round(w2f / scale[:, None, :]), -127, 127)
-        w2q = w2q.to(torch.int8).contiguous()
+        w2q = pad_spectra(w2q.to(torch.int8).contiguous(), d)
         return FFTBank(w2=w2q, c=c, length=length, nfft=nfft, d=d,
                        w2_scale=scale.contiguous(), w2_kmajor=kmajor_spectra(w2q),
                        num_templates=k)
-    w2 = _bank_spectra(w, nfft, mm_dtype)
-    return FFTBank(w2=w2.contiguous(), c=c, length=length, nfft=nfft, d=d,
-                   num_templates=k)
+    w2 = pad_spectra(_bank_spectra(w, nfft, mm_dtype).contiguous(), d)
+    return FFTBank(w2=w2, c=c, length=length, nfft=nfft, d=d, num_templates=k)
 
 
 def quantize_block_spectra(xr, xi, w2_scale):
@@ -246,6 +256,9 @@ def fft_sliding_scores(
         mm = bank.w2.dtype
     b, t = feats.shape[0], feats.shape[1]
     x = feats.reshape(b, t, d).to(mm).contiguous()
+    if bank.dp != d:
+        # the bank's D8 rows: the map zero-padded to match, once a call
+        x = torch.nn.functional.pad(x, (0, bank.dp - d))
     tout = t - length + 1
     if tout <= 0:
         raise ValueError(f"T {t} shorter than template length {length}")

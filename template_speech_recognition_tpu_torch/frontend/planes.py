@@ -59,8 +59,9 @@ class FlatFeatureMap(NamedTuple):
 
 
 def _fused_ok(cfg: FrontendConfig) -> bool:
-    """Shapes both kernels of the two-kernel path take.  Unlike the
-    reference, no budget on T: its select keeps a whole plane resident
+    """Shapes both kernels of the two-kernel path take: F a multiple
+    of 4 (kernel 1 takes any n_mels, past ``MAX_MELS`` in chunks).
+    Unlike the reference, no budget on T: its select keeps a whole plane resident
     in VMEM up to 786,432 cells; the port's keeps it resident in a
     16-CTA cluster's shared memory up to T = 3264 at F = 256 and takes
     larger planes by its multipass variant (``ops.selbin_kernel.route``),

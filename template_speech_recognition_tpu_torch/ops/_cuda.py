@@ -159,6 +159,26 @@ def require_layout(t: torch.Tensor, name: str, dtype, ndim: int) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+def padded_width(d: int, multiple: int = 8) -> int:
+    """``d`` rounded up to ``multiple``."""
+    return -(-d // multiple) * multiple
+
+
+def aligned_rows(t: torch.Tensor, multiple: int = 8) -> torch.Tensor:
+    """``t`` itself where its rows suit a TMA or 16-byte load (the last
+    dimension a multiple of ``multiple``, contiguous, the base 16-byte
+    aligned), else a fresh contiguous copy with zero columns appended up
+    to the next multiple.  A zero column adds exact zeros to every
+    product over the last dimension, so a kernel that contracts it
+    gives the unpadded result."""
+    d = t.shape[-1]
+    if d % multiple == 0 and t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    out = t.new_zeros(t.shape[:-1] + (padded_width(d, multiple),))
+    out[..., :d] = t
+    return out
+
+
 def on_cpu(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on the CPU (plain path); raises for
     a device that is neither the CPU nor CUDA, or for a mix."""

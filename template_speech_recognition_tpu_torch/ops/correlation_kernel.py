@@ -24,8 +24,29 @@ partial last d-chunk adds exactly zero.  One producer warp, two
 consumer warpgroups, a 10-slot W ring and two panel slots.  No split of
 the contraction: every output is one block's sum in one fixed order, so
 launches are bitwise repeatable.  ``correlation_scores_tiled`` walks the
-same schedule in PyTorch, for the tests.  Any T, K and L <= T; D a
-multiple of 8 (D = 8F' always is); 16-byte aligned bases.
+same schedule in PyTorch, for the tests.  Any T, K and L <= T.
+
+Any D and any base: TMA takes rows of 16 bytes from a 16-byte aligned
+base, so where D is not a multiple of 8 or a base is off, the wrapper
+hands the kernel ``feats`` and ``W`` zero-padded to D8 = ceil(D/8)*8 in
+fresh buffers (``_cuda.aligned_rows``), as the reference's API path pads
+D (its ``detect/scorer.py``); the zero columns add exact zeros.  At D %
+8 = 0 with aligned bases nothing is copied.
+
+Extents past int32: B*T'' and L*D may pass 2^31.  Chosen: 64-bit
+offsets where the kernel forms such a product, rather than launches over
+runs of utterances.  The kernel forms one, the output row offset (b*K +
+k)*T'', in ``size_t``; every other address is TMA's, which takes each
+coordinate (below T, D, L and K, each an int) and 64-bit strides, so
+B*T*D and L*D never meet a 32-bit product.  One launch keeps the grid's
+tiles in one wave order and needs no split rule to test.  The wrapper
+checks only what a launch must hold: each extent an int, B*ceil(T''/192)
+blocks below 2^31 and ceil(K/128) below 65,536.  A contraction of more
+than 4,096 steps (ceil(D/64)*L; the bench shape's is 1,024) runs a build
+that restarts the tensor cores' sum every 32 shifts and adds it to a
+register sum rounded to nearest: ``wgmma`` cuts its f32 sums, and at L*D
+near 2^31 the cut additions into one accumulator drift far from the
+plain version.
 
 What bounds it on the H100: bf16 operations.  At the reference's bench
 shape (B = 8, T = 3000, K = 1024, L = 32, D = 2048) 3.19 TFLOP take 3.22
@@ -97,10 +118,23 @@ def correlation_scores_tiled(feats, w, c) -> torch.Tensor:
     return out
 
 
+def check_launch(b: int, t: int, d: int, k: int, length: int) -> None:
+    """What one launch must hold (``tsr_correlation``'s int arguments
+    and its grid): T, D8, K and L ints with room for a panel's rows past
+    T, B*ceil(T''/TILE_T) blocks below 2^31, ceil(K/TILE_K) below
+    65,536.  B*T'' and L*D themselves are free."""
+    tv = t - length + 1
+    if max(b, t + TILE_T + 32, _cuda.padded_width(d), k, length) >= 2**31:
+        raise ValueError(f"B {b}, T {t}, D {d}, K {k}, L {length}: each must fit an int")
+    if b * -(-tv // TILE_T) >= 2**31 or -(-k // TILE_K) >= 65536:
+        raise ValueError(f"B {b}, T''={tv}, K {k}: more blocks than a grid holds")
+
+
 def correlation_scores(feats, w, c) -> torch.Tensor:
     """feats [B, T, D], W [K, L, D], c [K] -> scores [B, K, T-L+1] f32.
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (bf16 feats and W, f32 c)."""
+    (bf16 feats and W, f32 c; any D and base: rows padded to D8 where
+    they must be)."""
     if _cuda.on_cpu(feats, w, c):
         return correlation_scores_plain(feats, w, c)
     _cuda.require(feats, "feats", torch.bfloat16, 3)
@@ -114,13 +148,12 @@ def correlation_scores(feats, w, c) -> torch.Tensor:
     if not 1 <= length <= t:
         raise ValueError(f"template length {length} must lie in [1, T={t}]")
     tv = t - length + 1
-    if d % 8 or feats.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError(f"D={d} must be a multiple of 8 and the bases 16-byte aligned")
-    if b * tv >= 2**31 or length * d >= 2**31:
-        raise ValueError(f"B*T''={b * tv} and L*D={length * d} must stay below 2**31")
+    check_launch(b, t, d, k, length)
     out = torch.empty((b, k, tv), dtype=torch.float32, device=feats.device)
     if b == 0 or k == 0:
         return out
+    feats, w = _cuda.aligned_rows(feats), _cuda.aligned_rows(w)
+    d = feats.shape[2]
     lib = _cuda.load("correlation")
     fn = _cuda.declare(lib, "tsr_correlation", 4, 5)
     err = fn(

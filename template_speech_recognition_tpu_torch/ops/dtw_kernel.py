@@ -42,15 +42,23 @@ pair's whole c row with its tile or its first chunk where L <=
 ``C_ROW_LENGTH``; past it, through the ring, a span of WP + CK c rows a
 chunk (from the first in-band row of its first diagonal, which holds
 every row its in-band cells read), so shared memory does not grow with
-L.  Any L >= 1; the in-band rows of a diagonal, min(2*band+1,
-L), at most ``MAX_WINDOW`` (R <= 16 registers a lane).
-``banded_dtw_emulated`` repeats that schedule in PyTorch (lanes,
-registers, shuffles, ring slots, whole tiles) for the CPU tests.
-Terminals and scores are bitwise those of the plain versions.
+L.  Those routes take up to ``MAX_WINDOW`` in-band rows a diagonal,
+min(2*band+1, L) (R <= 16 registers a lane).  Past it (or where the
+band expressions leave int32) the wide route: one pair a block, the
+window's positions over up to 1024 threads, each diagonal's D and
+min(D, up) exchanged through shared memory (or, for a window past
+12,288 positions, a scratch buffer the wrapper allocates) under one
+block barrier a diagonal, the cells and c words read in place
+(``wide_schedule``).  So any L >= 1 and band >= 0.
+``banded_dtw_emulated`` repeats those schedules in PyTorch (lanes,
+registers, shuffles, ring slots, whole tiles; the wide route's
+positions and buffers) for the CPU tests.  Terminals and scores are
+bitwise those of the plain versions.
 
 What bounds it on the H100: the chain of L + seg_len - 1 dependent
 diagonals a pair (69 at the scan's shapes), not bytes (1.4 MB of
-in-band cells, 0.0004 ms at 3.35 TB/s) or operations.
+in-band cells, 0.0004 ms at 3.35 TB/s) or operations; on the wide
+route, a block barrier and a cached read a diagonal.
 """
 
 from __future__ import annotations
@@ -64,8 +72,10 @@ SOURCE = "template_speech_recognition_tpu_torch/csrc/banded_dtw.cu"
 REPLACES = "template_speech_recognition_tpu/ops/dtw_pallas.py:688"
 UNREACHABLE = 3.0e38
 MAX_WINDOW = 511
-WARPS, STAGES, STAGE_WORDS, TILE_WORDS = 4, 3, 1024, 6144                   # csrc/banded_dtw.cu
+# csrc/banded_dtw.cu's constants
+WARPS, STAGES, STAGE_WORDS, TILE_WORDS = 4, 3, 1024, 6144
 C_ROW_LENGTH, C_STAGE_WORDS = 256, 544
+WIDE_MAX_THREADS, WIDE_SMEM_WORDS = 1024, 4 * (12288 + 2)
 
 
 def banded_dtw_plain(cost: torch.Tensor, seg_lens: torch.Tensor,
@@ -147,12 +157,15 @@ def _launch(llr4, seg_lens, c_tab, cid, band, fused, lib=None):
     # |j*lm1 - i*mm1| never exceeds (L + M) * lm1: a wider band is the
     # same band, and the clamp keeps the kernel's integer products in int32
     band = min(band, length + m)
+    # the wide route's state, where it does not fit shared memory
+    words = wide_schedule(length, m, band)["scratch_words"] if is_wide(length, m, band) else 0
+    scratch = torch.empty((n * words,), dtype=torch.float32, device=llr4.device) if words else None
     lib = lib or _cuda.load("banded_dtw")
-    fn = _cuda.declare(lib, "tsr_banded_dtw", 5, 6, 4)
+    fn = _cuda.declare(lib, "tsr_banded_dtw", 6, 6, 4)
     s_b, s_q, s_i, s_j = llr4.stride()
     err = fn(
         _cuda.ptr(llr4), _cuda.ptr(c_tab if fused else None), _cuda.ptr(cid),
-        _cuda.ptr(seg_lens), _cuda.ptr(out), s_b, s_q, s_i, s_j,
+        _cuda.ptr(seg_lens), _cuda.ptr(out), _cuda.ptr(scratch), s_b, s_q, s_i, s_j,
         n, inner, length, m, c_tab.shape[0] if fused else 0, band,
         _cuda.stream_ptr(llr4.device),
     )
@@ -166,9 +179,28 @@ def _check_length(length: int, band: int) -> None:
         raise ValueError(f"L={length}: the kernel takes L >= 1")
     if band < 0:
         raise ValueError(f"band must be >= 0, got {band}")
-    if min(2 * band + 1, length) > MAX_WINDOW:
-        raise ValueError(f"L={length}, band={band}: the kernel takes at most {MAX_WINDOW} "
-                         f"in-band rows a diagonal, min(2*band+1, L)")
+
+
+def is_wide(length: int, m: int, band: int) -> bool:
+    """Whether ``tsr_banded_dtw`` takes the wide route (band clamped to
+    L + M): more than ``MAX_WINDOW`` in-band rows a diagonal,
+    min(2*band+1, L), or band expressions past int32."""
+    band = min(band, length + m)
+    return (min(2 * band + 1, length) > MAX_WINDOW
+            or (length + m + band) * max(length - 1, 1) >= 2**31)
+
+
+def wide_schedule(length: int, m: int, band: int) -> dict:
+    """The wide route's layout (as ``launch_wide`` sets it): WP window
+    positions (min(2*band+1, L, M) and a spare one), T threads a pair
+    (position w in thread w % T), and the scratch words a pair where its
+    state, 4 * (WP + 2) words, does not fit ``WIDE_SMEM_WORDS`` (else
+    0: the state in shared memory)."""
+    band = min(band, length + m)
+    wp = min(2 * band + 1, length, m) + 1
+    state = 4 * (wp + 2)
+    return {"WP": wp, "T": min(WIDE_MAX_THREADS, -(-wp // 32) * 32),
+            "scratch_words": state if state > WIDE_SMEM_WORDS else 0}
 
 
 def banded_dtw_scores(llr: torch.Tensor, seg_lens: torch.Tensor, c_tab: torch.Tensor,
@@ -177,8 +209,8 @@ def banded_dtw_scores(llr: torch.Tensor, seg_lens: torch.Tensor, c_tab: torch.Te
     [B] int32 (1 <= seg_len <= M), c_tab [G, L] f32, cid [N] / [B*Q]
     int32 in [0, G) or None (pair n takes row n % G) -> scores [N] or
     [B, Q] f32 (-inf where unreachable).  CPU tensors take the plain
-    version; CUDA tensors launch the kernel (min(2*band+1, L) <=
-    ``MAX_WINDOW``), one launch."""
+    version; CUDA tensors launch the kernel (any L >= 1 and band >= 0),
+    one launch."""
     tensors = [llr, seg_lens, c_tab] + ([] if cid is None else [cid])
     if _cuda.on_cpu(*tensors):
         return banded_dtw_scores_plain(llr, seg_lens, c_tab, band, cid)
@@ -205,7 +237,7 @@ def banded_dtw(cost: torch.Tensor, seg_lens: torch.Tensor, band: int) -> torch.T
     """cost [N, L, M] f32 + seg_lens [N] int32 (1 <= seg_len <= M) ->
     terminal costs [N] f32 (3e38 where unreachable): the kernel's raw
     mode.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel (min(2*band+1, L) <= ``MAX_WINDOW``)."""
+    kernel (any L >= 1 and band >= 0)."""
     if _cuda.on_cpu(cost, seg_lens):
         return banded_dtw_plain(cost, seg_lens, band)
     _cuda.require(cost, "cost", torch.float32, 3)
@@ -281,6 +313,8 @@ def banded_dtw_emulated(llr: torch.Tensor, seg_lens: torch.Tensor, band: int,
     if n == 0:
         return torch.zeros(llr.shape[:-2] if fused else (0,), dtype=torch.float32)
     band = min(band, length + m)
+    if is_wide(length, m, band):
+        return _wide_emulated(llr, seg_lens, band, c_tab, cid)
     sc = schedule(length, band)
     r_, g_, ck, wp, nl, ppw = (sc[k] for k in ("R", "G", "CK", "WP", "NL", "PPW"))
     lm1 = max(length - 1, 1)
@@ -438,3 +472,71 @@ def banded_dtw_emulated(llr: torch.Tensor, seg_lens: torch.Tensor, band: int,
         return total
     lens_n = lens.repeat_interleave(inner) if inner > 1 else lens
     return scores_from_terminals(total, lens_n, length).reshape(llr.shape[:-2])
+
+
+def _wide_emulated(llr, seg_lens, band, c_tab=None, cid=None):
+    """The wide route's schedule in PyTorch (``banded_dtw_emulated``
+    past ``MAX_WINDOW``): one pair a block, window positions [0, WP) of
+    ``wide_schedule``, each diagonal's D and Q = min(D, up) in a buffer
+    of WP + 2 words (positions -1 and WP unreachable, never written),
+    two buffers by the diagonal's parity (diagonal -1's Q 0 at position
+    0), up = D[w + d - 1] and lq = Q[w + d] of the diagonal before, the
+    cell read through the strides where it is in band (+inf elsewhere),
+    the window stepped by the reference's rule with the band expression
+    exact; each pair's loop to its own terminal diagonal."""
+    fused = c_tab is not None
+    llr4 = _as_pairs(llr)
+    nb, inner, length, m = llr4.shape
+    n = nb * inner
+    band = min(band, length + m)
+    wp = wide_schedule(length, m, band)["WP"]
+    pair = torch.arange(n)
+    lens = seg_lens.to(torch.int64)
+    mlen = lens[pair // inner]
+    kmax = torch.where((mlen >= 1) & (mlen <= m), length + mlen - 2, -1)
+    lm1 = max(length - 1, 1)
+    den = lm1 + torch.clamp(mlen - 1, min=1)
+    bw = band * lm1
+    s_b, s_q, s_i, s_j = llr4.stride()
+    span = 1 + sum((size - 1) * st for size, st in zip(llr4.shape, llr4.stride()))
+    flat = torch.as_strided(llr4, (span,), (1,))
+    origin = (pair // inner) * s_b + (pair % inner) * s_q                   # [N]
+    if fused:
+        rows = (pair % c_tab.shape[0]) if cid is None else cid.long()
+        crow = c_tab.to(torch.float32)[rows]                                # [N, L]
+    # st[parity, 0 / 1 (P / Q), pair, word]: word w + 1 holds position w
+    st = torch.full((2, 2, n, wp + 2), UNREACHABLE)
+    st[1, 1, :, 1] = 0.0
+    w = torch.arange(wp)[None, :]
+    ilo = torch.zeros(n, dtype=torch.int64)
+    j0, e, d = ilo.clone(), ilo.clone(), ilo.clone()
+    term = torch.full((n,), UNREACHABLE)
+    unreach = torch.tensor(UNREACHABLE)
+    for k in range(int(kmax.max()) + 1 if n else 0):
+        run = k <= kmax                                                     # [N]
+        prev, cur = st[(k + 1) % 2], st[k % 2]
+        up = torch.gather(prev[0], 1, w + d[:, None])
+        lq = torch.gather(prev[1], 1, w + d[:, None] + 1)
+        i = ilo[:, None] + w
+        j = j0[:, None] - w
+        xb = e[:, None] - w * den[:, None] + bw
+        ok = (i < length) & (j >= 0) & (j < mlen[:, None]) & (xb >= 0) & (xb <= 2 * bw)
+        cell = origin[:, None] + i.clamp(0, length - 1) * s_i + j.clamp(0, m - 1) * s_j
+        x = flat[cell.clamp(0, span - 1)]
+        if fused:
+            x = -(x + torch.gather(crow, 1, i.clamp(0, length - 1)))
+        c = torch.where(ok, x, float("inf"))
+        v = torch.minimum(c + torch.minimum(up, lq), unreach)
+        keep = run[:, None]
+        cur[0, :, 1 : wp + 1] = torch.where(keep, v, cur[0, :, 1 : wp + 1])
+        cur[1, :, 1 : wp + 1] = torch.where(keep, torch.minimum(v, up), cur[1, :, 1 : wp + 1])
+        term = torch.where(run & (k == kmax), v[:, 0], term)
+        step = ((j0 >= mlen - 1) | (e > bw - lm1)).long()
+        d = torch.where(run, step, d)
+        ilo = torch.where(run, ilo + step, ilo)
+        j0 = torch.where(run, j0 + 1 - step, j0)
+        e = torch.where(run, e + lm1 - step * den, e)
+    if not fused:
+        return term
+    lens_n = lens.repeat_interleave(inner) if inner > 1 else lens
+    return scores_from_terminals(term, lens_n, length).reshape(llr.shape[:-2])

@@ -17,7 +17,10 @@ The contraction runs over W2's two halves in turn; in the second, the
 imaginary part multiplies Xr with ``wgmma``'s immediate scale-a = -1,
 so the packed operand is never built.  W2 is read in place as an
 MN-major B operand (transpose-B, 128-byte swizzle); rows past m, D and
-K are TMA's zero fill.  Slabs are adjacent in the grid, so W2 streams
+K are TMA's zero fill.  TMA's 16-byte rows want D % 8 = 0: the FFT
+bank's spectra are built padded to D8 rows a half (``pad_spectra``,
+``detect/fft_scorer.py``), the scan pads its map to D8 once a call, and
+the wrapper pads any other operand itself.  Slabs are adjacent in the grid, so W2 streams
 from device memory about once.
 
 What bounds it on the H100: bf16 operations, just above the ridge.
@@ -75,26 +78,49 @@ def fft_binmm_plain(xr, xi, w2):
     return torch.stack([y[:, :m], y[:, m:]])
 
 
+def pad_spectra(w2: torch.Tensor, d: int) -> torch.Tensor:
+    """W2 [bins, 2D, K] -> [bins, 2 D8, K] (D8 = ceil(D/8)*8): each
+    half's D rows, then zero rows to D8, so it meets spectra padded to
+    D8 columns.  ``w2`` itself where D % 8 == 0."""
+    d8 = _cuda.padded_width(d)
+    if d8 == d:
+        return w2
+    bins, _, k = w2.shape
+    out = w2.new_zeros((bins, 2, d8, k))
+    out[:, :, :d] = w2.reshape(bins, 2, d, k)
+    return out.reshape(bins, 2 * d8, k)
+
+
 def fft_binmm(xr, xi, w2):
     """xr, xi [bins, m, D] (or [bins, B, nblk, D]) x W2 [bins, 2D, K]
     -> [2, bins, m, K].  CPU tensors take the plain version; CUDA
-    tensors launch the kernel (bf16 only)."""
+    tensors launch the kernel (bf16 only; K a multiple of 8).  Any D
+    and any base: where the rows do not suit TMA the kernel runs on
+    copies padded to D8 columns (``pad_spectra`` for W2); the scan's
+    bank and spectra come padded already, so it copies nothing."""
     if _cuda.on_cpu(xr, xi, w2):
         return fft_binmm_plain(xr, xi, w2)
     bins, d = xr.shape[0], xr.shape[-1]
     xr3 = xr.reshape(bins, -1, d)
     xi3 = xi.reshape(bins, -1, d)
-    _cuda.require(xr3, "xr", torch.bfloat16, 3)
-    _cuda.require(xi3, "xi", torch.bfloat16, 3)
     _cuda.require(w2, "w2", torch.bfloat16, 3)
     m = xr3.shape[1]
     k = w2.shape[2]
     if xi3.shape != xr3.shape or tuple(w2.shape[:2]) != (bins, 2 * d):
         raise ValueError(f"bad shapes: xr {tuple(xr.shape)}, w2 {tuple(w2.shape)}")
-    if d % 8 or k % 8:
-        raise ValueError(f"D={d} and K={k} must be multiples of 8")
-    if any(a.data_ptr() % 16 for a in (xr3, xi3, w2)):
-        raise ValueError("xr, xi and w2 must be 16-byte aligned")
+    if k % 8:
+        raise ValueError(f"K={k} must be a multiple of 8")
+    if w2.data_ptr() % 16:
+        w2 = w2.clone()
+    # TMA's 16-byte rows: where D % 8 != 0, or xr / xi are strided views
+    # (kernel 3's outputs at such a D) or off 16 bytes, zero-padded
+    # copies of D8 columns, and W2's two halves padded alike
+    xr3, xi3 = _cuda.aligned_rows(xr3), _cuda.aligned_rows(xi3)
+    if xr3.shape[2] != d:
+        w2 = pad_spectra(w2, d)
+        d = xr3.shape[2]
+    _cuda.require(xr3, "xr", torch.bfloat16, 3)
+    _cuda.require(xi3, "xi", torch.bfloat16, 3)
     out = torch.empty((2, bins, m, k), dtype=torch.bfloat16, device=xr.device)
     lib = _cuda.load("fft_binmm")
     fn = _cuda.declare(lib, "tsr_fft_binmm", 4, 4)

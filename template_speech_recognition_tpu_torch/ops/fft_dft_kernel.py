@@ -29,7 +29,9 @@ in registers.  A block walks a run of consecutive
 windows of one (b, 64 or 128 d) tile; ``plan`` picks the pass width,
 the tile width, the ring depth and the run length that fill the card.
 The epilogue writes each window's tile transposed into shared memory
-and stores it by TMA.  ``fft_block_dft_tiled`` walks the same schedule
+and stores it by TMA.  TMA takes rows of 16 bytes from a 16-byte aligned
+base: any other D or base runs on a zero-padded copy of D8 columns
+(``_cuda.aligned_rows``; the wrapper returns views of the first D).  ``fft_block_dft_tiled`` walks the same schedule
 in PyTorch, for the tests.
 
 What bounds it on the H100: bytes at the scan's shape, operations at
@@ -275,16 +277,25 @@ def _basis_for(g: torch.Tensor, nfft: int, p: Plan) -> torch.Tensor:
 def fft_block_dft(x, g, nfft: int, hop: int, nblk: int):
     """x [B, T, D] x g [nfft, 2*bins] -> xr, xi [bins, B, nblk, D].
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (bf16 only) or raise on a shape it cannot take."""
+    (bf16 only) or raise on arguments that are not a block DFT.  Where
+    D % 8 != 0 or x's base is not 16-byte aligned, the kernel runs on x
+    zero-padded to D8 = ceil(D/8)*8 columns, and xr, xi are views of its
+    [bins, B, nblk, D8] outputs (the padded columns are zeros);
+    ``detect.fft_scorer`` pads the map once itself, so the scan gets
+    whole outputs."""
     if _cuda.on_cpu(x, g):
         return fft_block_dft_plain(x, g, nfft, hop, nblk)
     _cuda.require(x, "x", torch.bfloat16, 3)
     _cuda.require(g, "g", torch.bfloat16, 2)
-    b, t, d = x.shape
+    b, t, d_in = x.shape
     _check_extent(t, nfft, hop, nblk)
-    if g.shape[0] != nfft or g.shape[1] % 2 or d % 8 or b == 0 or x.data_ptr() % 16:
+    if g.shape[0] != nfft or g.shape[1] % 2 or b == 0:
         raise ValueError(f"bad shapes: x {tuple(x.shape)}, g {tuple(g.shape)}, nfft {nfft}: "
-                         f"D a multiple of 8, B > 0, a 16-byte aligned base")
+                         f"B > 0, g [nfft, 2 bins]")
+    # TMA's 16-byte rows: D8 columns from an aligned base, zero-padded
+    # in a fresh buffer where D % 8 != 0 or the base is off
+    x = _cuda.aligned_rows(x)
+    d = x.shape[2]
     bins = g.shape[1] // 2
     p = plan(b, d, nfft, nblk, bins, _sm_count(str(x.device)))
     gt = _basis_for(g, nfft, p)
@@ -299,4 +310,6 @@ def fft_block_dft(x, g, nfft: int, hop: int, nblk: int):
     )
     _cuda.check(lib, err, NAME)
     _cuda.count_launch(NAME)
+    if d != d_in:
+        return xr[..., :d_in], xi[..., :d_in]
     return xr, xi

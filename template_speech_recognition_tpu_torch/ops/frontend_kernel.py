@@ -34,7 +34,11 @@ fresh tensor-core sum that is added round-to-nearest to the running
 one, since ``wgmma`` cuts its f32 sums.  The power forms in registers,
 the spectrum (in mel mode the power, then the mel sums over each
 filter's nonzero bins, fp32 SIMT) stays in shared memory, and only the
-planes reach device memory.  A frame length that is not a multiple of
+planes reach device memory.  Past ``MAX_MELS`` filters (the mel sums'
+room in shared memory) the mel mode launches once a chunk of filters
+(``mel_chunks``: adjacent chunks share a filter, each writes its plane
+columns), recomputing the DFT a chunk; each filter's sum keeps its
+order, so the chunked planes are bitwise the one-launch planes.  A frame length that is not a multiple of
 4 is padded with zero samples (a TMA row is a multiple of 16 bytes);
 otherwise the frames must start on a 16-byte boundary.
 
@@ -65,6 +69,7 @@ from template_speech_recognition_tpu_torch.ops import _cuda
 from template_speech_recognition_tpu_torch.ops.dft import (
     LOG_EPS,
     _mel_np,
+    _power,
     dft_matrices,
     log_magnitude_spectrogram,
     log_mel_spectrogram,
@@ -81,14 +86,25 @@ MEL_REPLACES = "template_speech_recognition_tpu/ops/frontend_pallas.py:209"
 
 # The mel sums [64, n_mels] share the 227 KB of shared memory with a
 # ring of at least two 36 KB stages and the [64, 129] spectrum tile
-# (``smem_bytes`` in the source): 484 filters at most.
+# (``smem_bytes`` in the source): 484 filters a launch at most.  More go
+# in chunks (``mel_chunks``).
 MAX_MELS = 484
 
 
 def supported(nfft: int, n_mels: int = 0) -> bool:
-    """Shapes the CUDA kernel takes: any DFT width, and 0 or 2..484
-    mel filters."""
-    return nfft // 2 >= 1 and (n_mels == 0 or 2 <= n_mels <= MAX_MELS)
+    """Shapes the CUDA kernel takes: any DFT width, and 0 or any n_mels
+    >= 2 mel filters (past ``MAX_MELS`` in chunks, a launch each)."""
+    return nfft // 2 >= 1 and (n_mels == 0 or n_mels >= 2)
+
+
+def mel_chunks(n_mels: int) -> list[tuple[int, int]]:
+    """The launches of the mel mode: filter ranges [c0, c1], each of at
+    most ``MAX_MELS`` filters, adjacent ranges sharing one filter.  The
+    differences at plane column f read filters f and f + 1, so range
+    [c0, c1] gives plane columns [c0, c1 - 1], and the ranges together
+    give columns [0, n_mels - 1) once each.  One range up to MAX_MELS."""
+    f = n_mels - 1
+    return [(c0, min(c0 + MAX_MELS - 1, f)) for c0 in range(0, f, MAX_MELS - 1)]
 
 
 def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -135,6 +151,21 @@ def edge_response_planes_plain(
     if n_mels:
         return _differences(log_mel_spectrogram(frames, nfft, sample_rate, n_mels), n_mels - 1)
     return _differences(log_magnitude_spectrogram(frames, nfft), nfft // 2)
+
+
+def mel_planes_chunked_plain(frames, nfft: int, sample_rate: int, n_mels: int):
+    """The mel mode's launches past ``MAX_MELS`` in plain PyTorch, for
+    the CPU tests: each chunk [c0, c1] of ``mel_chunks`` computes the
+    log-mel of its own filters (the filterbank's columns c0..c1) and
+    writes its difference columns [c0, c1) of [4, N, n_mels - 1]."""
+    frames = frames.to(torch.float32)
+    fb = mel_filterbank(sample_rate, nfft, n_mels, frames.device)
+    power = _power(frames, nfft)
+    out = frames.new_empty((4, frames.shape[0], n_mels - 1))
+    for c0, c1 in mel_chunks(n_mels):
+        spec = torch.log(power @ fb[:, c0 : c1 + 1] + float(LOG_EPS))
+        out[:, :, c0:c1] = _differences(spec, c1 - c0)
+    return out
 
 
 def planes64(frames, nfft, sample_rate=0, n_mels=0, split=False):
@@ -253,8 +284,7 @@ def edge_response_planes(
     _cuda.require(frames, "frames", torch.float32, 2)
     if not supported(nfft, n_mels):
         raise ValueError(
-            f"nfft={nfft}, n_mels={n_mels}: the kernel takes nfft >= 2 and n_mels 0 "
-            f"or 2..{MAX_MELS}"
+            f"nfft={nfft}, n_mels={n_mels}: the kernel takes nfft >= 2 and n_mels 0 or >= 2"
         )
     n, fl = frames.shape
     dev = str(frames.device)
@@ -271,13 +301,18 @@ def edge_response_planes(
         f = n_mels - 1
     out = torch.empty((4, n, f), dtype=torch.float32, device=frames.device)
     lib = _cuda.load("frontend_planes")
-    fn = _cuda.declare(lib, "tsr_frontend_planes", 5, 4)
-    err = fn(
-        _cuda.ptr(frames), _cuda.ptr(basis), _cuda.ptr(fbt), _cuda.ptr(mrange),
-        _cuda.ptr(out), n, fl4, nfft // 2, n_mels, _cuda.stream_ptr(frames.device),
-    )
-    _cuda.check(lib, err, NAME)
-    _cuda.count_launch(MEL_NAME if n_mels else NAME)
+    fn = _cuda.declare(lib, "tsr_frontend_planes", 5, 6)
+    # one launch, or (past MAX_MELS filters) one a chunk of filters, each
+    # writing its plane columns of ``out``; the split basis is cached once
+    for c0, c1 in mel_chunks(n_mels) if n_mels else [(0, 0)]:
+        err = fn(
+            _cuda.ptr(frames), _cuda.ptr(basis),
+            _cuda.ptr(fbt[c0:] if n_mels else None), _cuda.ptr(mrange[c0:] if n_mels else None),
+            _cuda.ptr(out), n, fl4, nfft // 2, c1 - c0 + 1 if n_mels else 0, f, c0,
+            _cuda.stream_ptr(frames.device),
+        )
+        _cuda.check(lib, err, NAME)
+        _cuda.count_launch(MEL_NAME if n_mels else NAME)
     return out
 
 

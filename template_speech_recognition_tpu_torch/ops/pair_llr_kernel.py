@@ -21,7 +21,11 @@ accumulation, each stage split across the warps in 32-wide chunks (D
 need only be a multiple of 8, as D = 8F' always is: the last stage is
 zero-filled), 16 bytes of filter row and 8 bool bytes of map row a
 lane; the bools turn into bf16 in registers, so no bf16 copy of the map
-is ever made.
+is ever made.  Any D and any base, as the reference: where D % 8 != 0
+or a base is not 16-byte aligned, the wrapper pads the map and the
+filters to D8 = ceil(D/8)*8 zero columns in fresh buffers
+(``_cuda.aligned_rows``); at D % 8 = 0 and aligned bases it copies
+nothing.
 
 What bounds it on the H100: bytes, counting each distinct map row the
 windows cover and each distinct filter the ids name once.  At the
@@ -61,7 +65,7 @@ def pair_llr_plain(feats, w, rowstart, ids, m: int) -> torch.Tensor:
 
 def pair_llr(feats, w, rowstart, ids, m: int) -> torch.Tensor:
     """feats [B, T, D] bool, w [K, L, D] bf16, rowstart [N] int32 (flat
-    row of each window's first frame), ids [N] int32 -> [N, L, m] f32.
+    row of each window's first frame), ids [N] int32 -> [N, L, m] f32, any D.
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if _cuda.on_cpu(feats, w, rowstart, ids):
         return pair_llr_plain(feats, w, rowstart, ids, m)
@@ -75,12 +79,14 @@ def pair_llr(feats, w, rowstart, ids, m: int) -> torch.Tensor:
     if dw != d or tuple(ids.shape) != (n,):
         raise ValueError(f"bad shapes: feats {tuple(feats.shape)}, w {tuple(w.shape)}, "
                          f"rowstart {tuple(rowstart.shape)}, ids {tuple(ids.shape)}")
-    if d % 8 or feats.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError(f"D={d} must be a multiple of 8 and the bases 16-byte aligned")
     dev = feats.device
     out = torch.empty((n, length, m), dtype=torch.float32, device=dev)
     if n == 0 or m == 0 or length == 0:
         return out
+    # rows of D8 from 16-byte aligned bases: a zero-padded copy only
+    # where D % 8 != 0 or a base is off (the padded columns add zeros)
+    feats, w = _cuda.aligned_rows(feats), _cuda.aligned_rows(w)
+    d = feats.shape[2]
     lib = _cuda.load("pair_llr")
     fn = _cuda.declare(lib, "tsr_pair_llr", 5, 6)
     err = fn(_cuda.ptr(feats), _cuda.ptr(w), _cuda.ptr(rowstart), _cuda.ptr(ids),

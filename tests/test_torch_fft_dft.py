@@ -177,14 +177,10 @@ def _offset_view(shape):
 @pytest.mark.parametrize(
     "why,args",
     [
-        ("D 500", lambda: (torch.zeros(2, 300, 500, dtype=torch.bfloat16),
-                           _g(159).to(torch.bfloat16), 159, 128, 3)),
         ("B 0", lambda: (torch.zeros(0, 300, 64, dtype=torch.bfloat16),
                          _g(159).to(torch.bfloat16), 159, 128, 3)),
         ("g not [nfft, 2 bins]", lambda: (torch.zeros(2, 300, 64, dtype=torch.bfloat16),
                                           _g(159)[:158].to(torch.bfloat16), 159, 128, 3)),
-        ("misaligned base", lambda: (_offset_view((2, 300, 64)), _g(159).to(torch.bfloat16),
-                                     159, 128, 3)),
     ],
 )
 def test_wrapper_raises_on_a_shape_the_kernel_cannot_take(monkeypatch, why, args):
@@ -202,3 +198,46 @@ def test_wrapper_raises_on_a_shape_the_kernel_cannot_take(monkeypatch, why, args
     monkeypatch.setattr(k3, "fft_block_dft_plain", None)
     with pytest.raises(ValueError):
         k3.fft_block_dft(*args())
+
+
+@pytest.mark.parametrize(
+    "why,d,args",
+    [
+        ("D 500", 500, lambda: (torch.rand(2, 300, 500).lt(0.3).to(torch.bfloat16),
+                                _g(159).to(torch.bfloat16), 159, 128, 3)),
+        ("misaligned base", 64, lambda: (_offset_view((2, 300, 64)),
+                                         _g(159).to(torch.bfloat16), 159, 128, 3)),
+    ],
+)
+def test_wrapper_pads_rows_the_kernel_cannot_take(monkeypatch, why, d, args):
+    """The CUDA path of the wrapper (the same stubs as above) takes D %
+    8 != 0 and a misaligned base: it loads the kernel (never the plain
+    version) and launches it on a fresh, contiguous, 16-byte aligned
+    copy of x zero-padded to D8 columns, and returns xr, xi of x's D."""
+    monkeypatch.setattr(_cuda, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(_cuda, "require", lambda *a, **k: None)
+    monkeypatch.setattr(k3, "_sm_count", lambda _dev: k3.H100_SMS)
+    monkeypatch.setattr(_cuda, "ptr", lambda t: t)
+    monkeypatch.setattr(_cuda, "stream_ptr", lambda _dev: None)
+    monkeypatch.setattr(k3, "fft_block_dft_plain", None)
+    calls = []
+
+    def launch(*a):
+        calls.append(a)
+        return 0
+
+    class Lib:
+        tsr_fft_block_dft = staticmethod(launch)
+
+    loaded = []
+    monkeypatch.setattr(_cuda, "load", lambda stem: loaded.append(stem) or Lib)
+    x, g, nfft, hop, nblk = args()
+    xr, xi = k3.fft_block_dft(x, g, nfft, hop, nblk)
+    assert loaded == ["fft_block_dft"] and len(calls) == 1
+    xp, d_arg = calls[0][0], calls[0][6]
+    d8 = -(-d // 8) * 8
+    assert d_arg == d8 and tuple(xp.shape) == (2, 300, d8)
+    assert xp.is_contiguous() and xp.data_ptr() % 16 == 0 and xp.data_ptr() != x.data_ptr()
+    assert torch.equal(xp[..., :d], x) and not bool(xp[..., d:].any())
+    bins = g.shape[1] // 2
+    assert tuple(xr.shape) == tuple(xi.shape) == (bins, 2, nblk, d)

@@ -250,8 +250,9 @@ def test_path_rule_reads_shapes():
     assert tplanes._fused_ok(FrontendConfig(use_mel=True, n_mels=129))  # F = 128
     assert tplanes._fused_ok(FrontendConfig(nfft=400))               # F = 200
     assert tplanes._fused_ok(FrontendConfig(nfft=4096))              # DFT width 2048
-    # F = 484, but more mel filters than the kernel's shared memory holds
-    assert not tplanes._fused_ok(FrontendConfig(use_mel=True, n_mels=k1.MAX_MELS + 1))
+    # F = 484: more mel filters than one launch's shared memory holds,
+    # which the kernel takes in chunks (k1.mel_chunks), so the two-kernel path
+    assert tplanes._fused_ok(FrontendConfig(use_mel=True, n_mels=k1.MAX_MELS + 1))
 
 
 @pytest.mark.parametrize("cfg", [FrontendConfig(), FrontendConfig(use_mel=True, n_mels=129)],

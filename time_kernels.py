@@ -1,5 +1,6 @@
 """Times kernel 1 (log-magnitude and mel mode), kernel 2 (select +
-binarize + spread), kernel 3 (the block DFT), kernel 5 (the iDFT),
+binarize + spread), kernel 3 (the block DFT), kernel 4 (the bf16 bin
+matmul), kernel 5 (the iDFT),
 kernel 6 (the int8 bin matmul), kernel 9 (binarize + spread), kernel 10
 (the direct correlation), kernel 11 (the pair-LLR tiles), kernels 12
 and 13 (the banded DTW) with the DTW stage around them, and the
@@ -11,7 +12,9 @@ wrapper's host time included).  Kernel 2 takes random normal planes [4,
 8, 3072, 256] with 2998 valid frames (30 s), q 0.98, rf = rt = 1.
 Kernel 3 takes random binary bf16 maps [8, 3072, D] at 0.15 density
 and the scorer's DFT basis at nfft 159 (hop 128, 24 windows), at D =
-2048 and at the log-mel D = 504.
+2048 and at the log-mel D = 504.  Kernel 4 takes random normal bf16
+spectra and W2 at the scan's shape (bins 80, m 192, K 1024) at D = 2048
+and 504 (``fft_binmm``, ``fft_binmm_d504``).
 Kernel 6 takes uniform int8 spectra at the scan's shape (bins 80, m 192,
 K 1024) at D = 2048 and at the log-mel D = 504: a checkout whose int8
 bin matmul reads the bank's K-major copy gets it and rows padded to 16
@@ -198,6 +201,12 @@ def one(root: str) -> dict:
             xr, xi = buf[0, ..., :d].contiguous(), buf[1, ..., :d].contiguous()
             fn = lambda xr=xr, xi=xi, w2=w2, sc=sc: k6.fft_binmm_int8(xr, xi, w2, sc)  # noqa: E731
         calls["fft_binmm_int8" if d == 2048 else "fft_binmm_int8_d504"] = fn
+    for d in (2048, 504):
+        xr, xi = (torch.randn(BINS, B * NBLK, d, device=dev, generator=g).to(torch.bfloat16)
+                  for _ in range(2))
+        w2 = torch.randn(BINS, 2 * d, K, device=dev, generator=g).to(torch.bfloat16)
+        calls["fft_binmm" if d == 2048 else "fft_binmm_d504"] = (
+            lambda xr=xr, xi=xi, w2=w2: k6.fft_binmm(xr, xi, w2))
     cm, sm = _dft_mats(NFFT_S, torch.bfloat16, dev)
     g_dft = torch.cat([cm, -sm], dim=1).contiguous()
     for d in (2048, 504):
