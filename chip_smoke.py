@@ -5,7 +5,16 @@
 
 1. builds the eleven CUDA kernels of the port from the eleven sources in
    ``template_speech_recognition_tpu_torch/csrc`` (one nvcc per source,
-   all started together);
+   all started together), then runs the port CLI's ``bench``
+   (``python -m template_speech_recognition_tpu_torch bench``, which runs
+   ``bench_cuda.py``) at ``bench.py``'s shape (B 8, T 3000, K 1024, L 32)
+   once for each ``BENCH_BACKEND``, fft, conv and pallas, a process each:
+   its last line must parse as JSON with every key of ``bench.py``
+   (``h100_step_ms`` and ``h100_effective_tflops`` for the ``tpu_*``
+   ones), ``value`` > 0 and this card's ``nvidia-smi`` line, and the
+   kernels of its scorer, frontend and scan must each have launched in
+   their own measurement (``python3 chip_smoke.py --bench`` runs the
+   build and this phase alone);
 2. calls each kernel's wrapper on the card at the shapes the scan gives
    it (8 utterances of 30 s: T_pad = 3072, F = 256, D = 2048, K = 1024
    templates of L = 32, nfft = 159; for the DTW rescore 8 x 123 peaks,
@@ -243,6 +252,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import os
 import subprocess
 import sys
 import time
@@ -432,23 +442,28 @@ def bound_ms(nbytes: float, ops: float, rate: float):
 
 
 class Corpus:
-    """N_UTT utterances of exactly SECONDS s cut from the synthetic
-    fixture corpus (oracle/fixtures.py), so every one lands in the
-    491,520-sample bucket (T_pad = 3072)."""
+    """``n`` utterances of exactly ``samples`` samples cut from the
+    synthetic fixture corpus (oracle/fixtures.py) of ``phones`` phones
+    each; past ``distinct`` of them the first ones repeat, under ids of
+    their own.  By default N_UTT distinct utterances of SECONDS s, so
+    every one lands in the 491,520-sample bucket (T_pad = 3072)."""
 
-    def __init__(self, seed: int):
+    def __init__(self, seed: int, n: int = N_UTT, samples: int = int(SECONDS * 16000),
+                 phones: int = 180, distinct: int | None = None):
         from oracle.fixtures import make_synthetic_corpus
 
         self.sample_rate = 16000
-        n = int(SECONDS * self.sample_rate)
-        base = make_synthetic_corpus(
-            num_utterances=N_UTT, phones_per_utterance=180, seed=seed
-        )
-        self.utts = []
+        base = make_synthetic_corpus(num_utterances=min(n, distinct or n),
+                                     phones_per_utterance=phones, seed=seed)
+        pool = []
         for u in base.utterances:
-            check(len(u.waveform) >= n, "synthetic utterance shorter than 30 s")
-            phones = [(p, s, e) for (p, s, e) in u.phones if e <= n]
-            self.utts.append((u.utt_id, np.ascontiguousarray(u.waveform[:n]), phones))
+            check(len(u.waveform) >= samples,
+                  f"synthetic utterance of {len(u.waveform)} samples, {samples} wanted")
+            phones_in = [(p, s, e) for (p, s, e) in u.phones if e <= samples]
+            pool.append((u.utt_id, np.ascontiguousarray(u.waveform[:samples]), phones_in))
+        self.utts = [pool[i] if i < len(pool) else
+                     (f"{pool[i % len(pool)][0]}.{i // len(pool)}", *pool[i % len(pool)][1:])
+                     for i in range(n)]
 
     def iter_utterances(self):
         yield from self.utts
@@ -462,6 +477,23 @@ class Corpus:
 
     def head(self, n: int) -> "Corpus":
         return Corpus.held(self.utts[:n], self.sample_rate)
+
+
+def scan_rates(torch, corpus, bank, cfg, reps: int, dev, **kw) -> list[float]:
+    """The audio-s/s of ``reps`` scans of ``corpus`` (``detect_corpus_stream``'s
+    ``counters["audio_s_per_s"]``: audio seconds over the scan loop's
+    wall, the bank build excluded), after a warm-up scan of all of it (a
+    warm-up of one batch leaves the first timed scan ~1.3x slow)."""
+    from template_speech_recognition_tpu_torch.scan import detect_corpus_stream
+
+    def scan(utts):
+        res = detect_corpus_stream(utts, bank, cfg, **kw)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return float(res.counters["audio_s_per_s"])
+
+    scan(corpus)
+    return [scan(corpus) for _ in range(reps)]
 
 
 def check_planes(torch, frames, nfft, got, want, name, sample_rate=0, n_mels=0,
@@ -2430,10 +2462,11 @@ SHARD_KERNELS = {"default": SCAN_KERNELS, "DTW": DTW_KERNELS, "DTW + int8": DTW_
 SAME_TOL = {"default": 4e-3, "DTW": 1e-4, "DTW + int8": 1e-4}
 
 
-def random_bank(fcfg, rng):
-    """The K 1024 random bank's templates and background, drawn from
-    ``rng`` (the main run's, or a worker's from ``SEED``: the same draws)."""
-    templates = rng.uniform(0.01, 0.99, (K, L, fcfg.feature_freqs, 8)).astype(np.float32)
+def random_bank(fcfg, rng, k: int = K, length: int = L):
+    """A random bank's templates (K 1024 of L 32 by default) and
+    background, drawn from ``rng`` (the main run's, or a worker's from
+    ``SEED``: the same draws)."""
+    templates = rng.uniform(0.01, 0.99, (k, length, fcfg.feature_freqs, 8)).astype(np.float32)
     background = rng.uniform(0.01, 0.99, (fcfg.feature_freqs, 8)).astype(np.float32)
     return templates, background
 
@@ -3369,7 +3402,65 @@ def domain_phase(torch, say, dev, wavs, nvalid, record, rows):
     say(f"domain phase: {time.perf_counter() - t_phase:.1f} s")
 
 
-def main(domain_only: bool = False) -> int:
+# the keys of bench.py's JSON line, its tpu_* keys named for the card
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "bank_k", "template_len",
+              "batch_utts", "frames_per_utt", "h100_step_ms", "h100_effective_tflops",
+              "cpu_oracle_audio_s_per_s", "backend", "timing", "e2e_audio_s_per_s",
+              "e2e_frac_of_kernel", "frontend_audio_s_per_s")
+# the kernels each bench backend's scorer must launch (conv: the library's)
+BENCH_SCORER_KERNELS = {"fft": ("fft_block_dft", "fft_binmm", "fft_idft"), "conv": (),
+                        "pallas": ("correlation",)}
+BENCH_TIMEOUT = 300        # seconds a bench process may take
+
+
+def bench_phase(say, card) -> None:
+    """The port CLI's ``bench`` (``bench_cuda.py``) on the card at
+    ``bench.py``'s shape (B 8, T 3000, K 1024, L 32), a process for each
+    backend: its last line parses as JSON with every key of ``bench.py``
+    (``h100_*`` for ``tpu_*``), ``value`` > 0, this card's ``nvidia-smi``
+    line, and each kernel of the scorer, the frontend and the scan
+    launched in its own measurement."""
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    for backend in BENCH_SCORER_KERNELS:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "template_speech_recognition_tpu_torch", "bench"],
+            cwd=root, env={**os.environ, "BENCH_BACKEND": backend}, capture_output=True,
+            text=True, timeout=BENCH_TIMEOUT)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"bench {backend}: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+        out = proc.stdout.strip().splitlines()
+        try:
+            line = json.loads(out[-1])
+        except (IndexError, ValueError):
+            line = None
+        check(isinstance(line, dict), f"bench {backend}: no JSON line last: {out[-3:]}")
+        missing = [k for k in BENCH_KEYS if k not in line]
+        check(not missing, f"bench {backend}: keys missing {missing}")
+        check(all((line[k] or 0) > 0 for k in ("value", "h100_step_ms", "e2e_audio_s_per_s")),
+              f"bench {backend}: {line}")
+        check((line["backend"], line["bank_k"], line["template_len"], line["batch_utts"],
+               line["frames_per_utt"]) == (backend, K, L, B, T_BENCH),
+              f"bench {backend}: not bench.py's shape: {line}")
+        check(line["card"] == card, f"bench {backend}: card {line['card']!r}, not {card!r}")
+        launches = line["launches"]
+        for stage, names in (("scorer", BENCH_SCORER_KERNELS[backend]),
+                             ("frontend", ("frontend_planes", "select_binspread")),
+                             ("e2e", SCAN_KERNELS)):
+            for name in names:
+                check(launches[stage].get(name, 0) > 0,
+                      f"bench {backend}: {name} not launched in its {stage} run: {launches}")
+        check(BENCH_SCORER_KERNELS[backend] or not launches["scorer"],
+              f"bench conv launched {launches['scorer']}")
+        for text in out[:-1]:
+            say(f"bench {backend}: {text}")
+        say(f"bench {backend} ({wall:.1f} s): {out[-1]}")
+    say(f"bench phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def main(only: str | None = None) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -3434,6 +3525,12 @@ def main(domain_only: bool = False) -> int:
         for line in log.splitlines():
             if "Used" in line or ("spill" in line and " 0 bytes spill" not in line):
                 say(f"ptxas {stem}: {line.strip()}")
+
+    # ---- the CLI's bench, each backend in a process of its own ---------
+    if only in (None, "bench"):
+        bench_phase(say, card)
+    if only == "bench":
+        return finish(torch, card, [], say, t_start)
 
     # ---- inputs at the scan's shapes ------------------------------------
     cfg = C.PipelineConfig()
@@ -3560,7 +3657,7 @@ def main(domain_only: bool = False) -> int:
             f"two launches bitwise equal; {plan}")
         return got
 
-    if domain_only:
+    if only == "domain":
         domain_phase(torch, say, dev, wavs, nvalid, record, rows)
         return finish(torch, card, rows, say, t_start)
 
@@ -4332,7 +4429,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--sharded-worker"]:
         sys.exit(sharded_worker(sys.argv[2]))
     try:
-        sys.exit(main(domain_only=sys.argv[1:2] == ["--domain"]))
+        sys.exit(main(only=sys.argv[1][2:] if sys.argv[1:] in (["--domain"], ["--bench"])
+                      else None))
     except CheckFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         sys.exit(1)

@@ -1,5 +1,5 @@
-"""CLI of the port: the ``train``, ``detect``, ``evaluate`` and ``classify``
-subcommands.
+"""CLI of the port: the ``train``, ``detect``, ``evaluate``, ``classify``
+and ``bench`` subcommands.
 
     python -m template_speech_recognition_tpu_torch train \\
         --corpus synthetic --phones aa,iy --bank bank.npz [--components N] [--parts N]
@@ -9,6 +9,8 @@ subcommands.
         --corpus synthetic --bank bank.npz --phone aa --artifacts out/
     python -m template_speech_recognition_tpu_torch classify \\
         --corpus synthetic --bank bank.npz [--dtw]
+    python -m template_speech_recognition_tpu_torch bench \\
+        [--bench-script bench_cuda.py] [--device cpu]
 
 ``--corpus synthetic`` builds the in-memory fixture corpus;
 ``--corpus timit:<root>`` reads every record of a TIMIT tree
@@ -29,7 +31,9 @@ rerun resumes from them), ``evaluate``'s ``--artifacts`` (``roc.npz``,
 ``detections.npz``, ``metrics.json``) and ``--tensorboard DIR`` (the
 reference's scalars through torch's ``SummaryWriter``, where the
 ``tensorboard`` package is installed), and ``classify``'s ``--dtw``.
-``bench`` comes with the benchmark (ROADMAP.md Queue 1, item 1).  Every
+``bench`` runs a benchmark script through ``runpy``, as the reference's
+does: ``--bench-script`` (default ``bench_cuda.py`` beside the package)
+with ``--device`` passed on, its exit code the subcommand's.  Every
 subcommand runs on the GPU unless ``--device cpu`` is given; on the GPU
 ``main`` first builds every kernel not built yet, all at once
 (``utils.compile_cache``).
@@ -43,6 +47,10 @@ import os
 import sys
 
 import numpy as np
+
+# the benchmark script ``bench`` runs by default: at the root of the checkout
+BENCH_SCRIPT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                            "bench_cuda.py")
 
 
 def _build_corpus(spec: str, seed: int):
@@ -235,6 +243,25 @@ def cmd_classify(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    """Run ``args.bench_script`` as ``__main__`` with ``--device`` passed
+    on; its exit code is the subcommand's."""
+    import runpy
+
+    argv = sys.argv
+    sys.argv = [args.bench_script] + (["--device", args.device] if args.device else [])
+    try:
+        runpy.run_path(args.bench_script, run_name="__main__")
+    except SystemExit as exc:
+        if exc.code is None or isinstance(exc.code, int):
+            return exc.code or 0
+        print(exc.code, file=sys.stderr)
+        return 1
+    finally:
+        sys.argv = argv
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="template_speech_recognition_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
@@ -297,6 +324,12 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--phone", default=None, help="unused; kept for symmetry")
     c.add_argument("--dtw", action="store_true", help="DTW-aligned scoring")
     c.set_defaults(fn=cmd_classify)
+
+    b = sub.add_parser("bench", help="run the scoring benchmark")
+    b.add_argument("--bench-script", default=BENCH_SCRIPT)
+    b.add_argument("--device", default=None,
+                   help="cuda (default; the script exits 2 without a GPU) or cpu")
+    b.set_defaults(fn=cmd_bench)
     return p
 
 

@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread: see the module)
 
 from template_speech_recognition_tpu.frontend import planes as jplanes
 from template_speech_recognition_tpu.ops.binspread_pallas import binarize_freqspread_pallas

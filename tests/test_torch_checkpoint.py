@@ -7,6 +7,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread: see the module)
 
 from oracle.mixture import init_responsibilities
 from template_speech_recognition_tpu import checkpoint as jckpt

@@ -10,6 +10,7 @@ import json
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread: see the module)
 
 import oracle as O
 from oracle.frontend import FrontendParams

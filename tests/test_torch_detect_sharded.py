@@ -46,6 +46,7 @@ from template_speech_recognition_tpu_torch.detect.evaluate import DetectionSet
 from template_speech_recognition_tpu_torch.parallel import detect_corpus_sharded, local_mesh
 from template_speech_recognition_tpu_torch.scan import CorpusDetections, detect_corpus_stream
 from torch_dist import Workers
+import torch_threads  # noqa: F401  (one intra-op thread: see the module)
 
 WORLD = 4
 CORPUS = dict(num_utterances=4, phones_per_utterance=4, seed=0)

@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread: see the module)
 
 import jax.numpy as jnp
 
@@ -43,8 +44,8 @@ from template_speech_recognition_tpu_torch.ops import pair_llr_kernel as kp
 MELS = [(485, 1024), (485, 2048), (968, 1024), (968, 2048)]
 
 
-def _noise(seed=0, n=16000):
-    """One second of seeded noise at 16 kHz, [1, n], and its length."""
+def _noise(seed=0, n=4000):
+    """A quarter second of seeded noise at 16 kHz, [1, n], and its length."""
     x = np.random.default_rng(seed).standard_normal((1, n)).astype(np.float32) * 0.1
     return x, np.array([n], np.int32)
 
@@ -58,14 +59,14 @@ def _chunked_plain(frames, nfft, sample_rate=0, n_mels=0):
 
 @pytest.mark.parametrize("n_mels,nfft", MELS, ids=[f"mels{m}-nfft{n}" for m, n in MELS])
 def test_mel_past_max_mels_matches_reference(n_mels, nfft, monkeypatch):
-    """The reference maps one second of noise at n_mels 485 and 968;
+    """The reference maps a quarter second of noise at n_mels 485 and 968;
     the port's planes, computed in ``mel_chunks`` (2 and 3 chunks of
     <= MAX_MELS filters, adjacent chunks sharing a filter), are within
     1e-5 (scaled) of float64 and within their fp32 bound on every cell,
     and its map is the unchunked plain map bitwise and equals the
     reference's on every valid row, apart from cells whose response
-    ties the threshold (at most 1e-3; 15 of 750,392 at n_mels 968, nfft
-    2048)."""
+    ties the threshold (at most 1e-3; none at these inputs, 15 of 750,392
+    on a second of noise at n_mels 968, nfft 2048)."""
     cfg = FrontendConfig(use_mel=True, n_mels=n_mels, nfft=nfft)
     jcfg = JFrontendConfig(use_mel=True, n_mels=n_mels, nfft=nfft)
     x, lens = _noise(n_mels + nfft)
@@ -152,7 +153,7 @@ def test_mel_wrapper_launches_a_chunk_at_a_time(monkeypatch):
     assert _cuda.launch_counts() == {k1.MEL_NAME: 3}
 
 
-WIDE = [(520, 260), (700, 10**6)]
+WIDE = [(520, 260), (530, 10**6)]
 
 
 @pytest.mark.parametrize("length,band", WIDE, ids=[f"L{l}-band{b}" for l, b in WIDE])

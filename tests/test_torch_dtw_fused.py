@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread: see the module)
 
 from template_speech_recognition_tpu.align import dtw as jdtw
 from template_speech_recognition_tpu.ops.dtw_pallas import banded_dtw_pallas

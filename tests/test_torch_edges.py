@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread: see the module)
 
 import jax.numpy as jnp
 from jax import lax

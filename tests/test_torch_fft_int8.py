@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread: see the module)
 
 from template_speech_recognition_tpu.detect import fft_scorer as jfs
 from template_speech_recognition_tpu.ops.fft_binmm_pallas import fft_binmm_pallas

@@ -13,6 +13,7 @@ import wave
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread: see the module)
 
 from template_speech_recognition_tpu.io import audio as jaudio
 from template_speech_recognition_tpu.io import corpus as jcorpus

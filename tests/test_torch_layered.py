@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread: see the module)
 
 import oracle as O
 from template_speech_recognition_tpu.config import FrontendConfig as JFrontendConfig

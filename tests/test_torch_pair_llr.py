@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread: see the module)
 
 from template_speech_recognition_tpu.ops.dtw_pallas import pair_llr_pallas
 from template_speech_recognition_tpu_torch.ops import pair_llr_kernel as kp

@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread: see the module)
 
 import oracle as O
 from oracle.parts import code_parts as o_code_parts, learn_parts as o_learn_parts

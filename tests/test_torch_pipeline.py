@@ -11,6 +11,7 @@ import os
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread: see the module)
 
 import jax.numpy as jnp
 

@@ -11,6 +11,7 @@ import subprocess
 
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread: see the module)
 
 from template_speech_recognition_tpu.utils import profiling as jprof
 from template_speech_recognition_tpu_torch.ops import _cuda

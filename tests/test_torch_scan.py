@@ -13,6 +13,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread: see the module)
 
 import jax.numpy as jnp
 
@@ -589,6 +590,11 @@ def test_config_json_round_trip():
     assert TC.from_json(JC.to_json(jcfg)) == cfg
 
 
+# the port's scripts at the repo root, held to the package's import rules
+# (bench_cuda.py takes its corpus, bank and scan loop from chip_smoke.py)
+PORT_SCRIPTS = ("bench_cuda", "chip_smoke")
+
+
 def _port_modules():
     root = os.path.join(REPO, PKG)
     mods = []
@@ -604,7 +610,7 @@ def test_port_imports_without_jax():
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
-        f"for m in {_port_modules()!r}:\n"
+        f"for m in {_port_modules() + list(PORT_SCRIPTS)!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'template_speech_recognition_tpu'"
         " or m.startswith('template_speech_recognition_tpu.')]\n"
@@ -631,6 +637,9 @@ def test_port_sources_name_no_jax_import():
             if name.endswith(".py"):
                 with open(os.path.join(dirpath, name)) as f:
                     hits += [(name, m.group(0)) for m in pat.finditer(f.read())]
+    for script in PORT_SCRIPTS:
+        with open(os.path.join(REPO, script + ".py")) as f:
+            hits += [(script, m.group(0)) for m in pat.finditer(f.read())]
     assert not hits, hits
 
 

@@ -16,6 +16,7 @@ import json
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread: see the module)
 
 from template_speech_recognition_tpu import checkpoint as jckpt
 from template_speech_recognition_tpu import cli as jcli

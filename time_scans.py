@@ -2,7 +2,8 @@
 default scan (log-magnitude features, D = 2048) and the log-mel scan
 (D = 504) over ``chip_smoke.py``'s corpus (19 synthetic utterances of
 30 s, batches of 8) with its random banks (K = 1024 templates of L =
-32, seed 0), one warm-up scan, then ``REPS`` scans each, and reports
+32, seed 0), one warm-up scan of the whole corpus, then ``REPS`` scans
+each (``chip_smoke.scan_rates``), and reports
 every scan's audio-s/s (``counters["audio_s_per_s"]``: audio seconds
 over the scan loop's wall time, bank build excluded).
 
@@ -22,7 +23,7 @@ import os
 import subprocess
 import sys
 
-from chip_smoke import B, K, L, SEED, Corpus, card_line
+from chip_smoke import B, SEED, Corpus, card_line, random_bank, scan_rates
 
 REPS = 5
 
@@ -36,7 +37,6 @@ def one(root: str) -> dict:
 
     from template_speech_recognition_tpu_torch import config as C
     from template_speech_recognition_tpu_torch.convert import bank_from_numpy
-    from template_speech_recognition_tpu_torch.scan import detect_corpus_stream
 
     if not C.__file__.startswith(root):
         raise RuntimeError(f"imported {C.__file__}, not from {root}")
@@ -45,20 +45,11 @@ def one(root: str) -> dict:
     out = {"root": root}
     for label, fcfg in (("default", C.FrontendConfig()),
                         ("log-mel", C.FrontendConfig(use_mel=True))):
-        rng = np.random.default_rng(SEED)
-        f = fcfg.feature_freqs
-        bank = bank_from_numpy(rng.uniform(0.01, 0.99, (K, L, f, 8)).astype(np.float32),
-                               rng.uniform(0.01, 0.99, (f, 8)).astype(np.float32),
-                               [f"k{i}" for i in range(K)], dev)
+        templates, background = random_bank(fcfg, np.random.default_rng(SEED))
+        bank = bank_from_numpy(templates, background,
+                               [f"k{i}" for i in range(len(templates))], dev)
         cfg = C.PipelineConfig(frontend=fcfg, detect=C.DetectConfig(batch_size=B))
-        detect_corpus_stream(corpus.head(B), bank, cfg, target_phone="aa")
-        torch.cuda.synchronize()
-        rates = []
-        for _ in range(REPS):
-            res = detect_corpus_stream(corpus, bank, cfg, target_phone="aa")
-            torch.cuda.synchronize()
-            rates.append(res.counters["audio_s_per_s"])
-        out[label] = rates
+        out[label] = scan_rates(torch, corpus, bank, cfg, REPS, dev, target_phone="aa")
     return out
 
 
