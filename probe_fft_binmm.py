@@ -36,8 +36,7 @@ import numpy as np
 SHAPES = ((80, 192, 2048, 1024), (80, 96, 2048, 1024), (80, 192, 504, 1024))
 EDITS = {
     "as_is": [],
-    "no_store": [("        if (r < m)\n          *reinterpret_cast",
-                  "        if (r < 0)\n          *reinterpret_cast")],
+    "no_store": [("        if (r < m) {\n", "        if (r < 0) {\n")],
     "ring2": [("constexpr int STAGES = 4;", "constexpr int STAGES = 2;")],
     "wait0": [('"wgmma.wait_group.sync.aligned 1;\\n"', '"wgmma.wait_group.sync.aligned 0;\\n"')],
 }
@@ -122,7 +121,8 @@ def main() -> int:
             continue
         for bins, m, d, k in ((3, 65, 504, 136), (1, 1, 8, 8), (3, 96, 40, 1024)):
             xr, xi, w2 = rnd(bins, m, d), rnd(bins, m, d), rnd(bins, 2 * d, k)
-            got = call(xr, xi, w2, torch.empty((2, bins, m, k), dtype=torch.bfloat16, device=dev))
+            out = torch.empty((2, 2, bins, m, k), dtype=torch.bfloat16, device=dev)
+            got = call(xr, xi, w2, out)
             ref = fft_binmm_plain(xr, xi, w2)
             err = float((got.float() - ref.float()).abs().max())
             if not err <= 2.0 ** -7 * float(ref.float().abs().max()):
@@ -131,7 +131,7 @@ def main() -> int:
     result = {"card": card, "unit": "ms", "shapes": []}
     for bins, m, d, k in SHAPES:
         xr, xi, w2 = rnd(bins, m, d), rnd(bins, m, d), rnd(bins, 2 * d, k, scale=0.05)
-        out = torch.empty((2, bins, m, k), dtype=torch.bfloat16, device=dev)
+        out = torch.empty((2, 2, bins, m, k), dtype=torch.bfloat16, device=dev)
         row = {"bins": bins, "m": m, "D": d, "K": k,
                "tflop": 2 * (2 * m) * (2 * d) * k * bins / 1e12}
         for name in ("as_is", "no_store", "ring2", "wait0"):

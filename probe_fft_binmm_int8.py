@@ -134,7 +134,7 @@ def run_variant(name: str, so: str) -> dict:
         return out
 
     def empty(bins, m, k):
-        return torch.empty((2, bins, m, k), dtype=torch.bfloat16, device="cuda")
+        return torch.empty((2, 2, bins, m, k), dtype=torch.bfloat16, device="cuda")
 
     row = {"variant": name}
     if name not in UNCHECKED:

@@ -8,12 +8,17 @@
 // Per frequency bin f, with xr, xi [bins, m, D] and W2 [bins, 2D, K]:
 //   out[0, f] = Xr . W2[f, :D] + Xi . W2[f, D:]     (Re of X . conj(W))
 //   out[1, f] = Xi . W2[f, :D] - Xr . W2[f, D:]     (Im)
-// accumulated in f32 and written [2, bins, m, K] in bf16.
+// accumulated in f32 and written as two bf16 planes [2 (hi, lo), 2,
+// bins, m, K]: hi = bf16(acc), lo = bf16(acc - f32(hi)), so hi + lo
+// carries the f32 sum to ~2^-16 of it, and the iDFT (kernel 5)
+// contracts both planes against its basis stacked twice.  A trained
+// bank's low bins are ~60x its largest score, and one bf16 step of them
+// moved a score by ~0.6% of max|score| (K 10,000 soak bank, PERF.md).
 //
 // What bounds it on the H100: bf16 operations, just above the ridge.  At
 // the scan's shapes (bins 80, m 192, D 2048, K 1024) the 258 GFLOP take
-// 0.26 ms at 989 TFLOP/s; W2 (671 MB) with xr/xi and the output take
-// 0.23 ms at 3.35 TB/s.  Only wgmma reaches the tensor cores' full rate,
+// 0.26 ms at 989 TFLOP/s; W2 (671 MB) with xr/xi and the two output
+// planes take 0.26 ms at 3.35 TB/s.  Only wgmma reaches the tensor cores' full rate,
 // and it needs its operands in shared memory in the swizzled layouts that
 // TMA writes.
 //
@@ -252,6 +257,7 @@ binmm_kernel(const __grid_constant__ CUtensorMap map_xr,
     const int lane = threadIdx.x & 31, warp = (threadIdx.x / 32) & 3;
     const int row = r0 + 16 * warp + (lane >> 2);
     bf16* dst = out + ((size_t)part * bins + f) * (size_t)m * K;
+    const size_t lo_plane = (size_t)2 * bins * m * K;
 #pragma unroll
     for (int g = 0; g < BN / 8; ++g) {
       const int col = n0 + 8 * g + 2 * (lane & 3);
@@ -259,9 +265,15 @@ binmm_kernel(const __grid_constant__ CUtensorMap map_xr,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = row + 8 * h;
-        if (r < m)
-          *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)r * K + col) =
-              __floats2bfloat162_rn(acc[4 * g + 2 * h], acc[4 * g + 2 * h + 1]);
+        if (r < m) {
+          const float a0 = acc[4 * g + 2 * h], a1 = acc[4 * g + 2 * h + 1];
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(a0, a1);
+          bf16* p = dst + (size_t)r * K + col;
+          const float2 hf = __bfloat1622float2(hi);
+          *reinterpret_cast<__nv_bfloat162*>(p) = hi;
+          *reinterpret_cast<__nv_bfloat162*>(p + lo_plane) =
+              __floats2bfloat162_rn(a0 - hf.x, a1 - hf.y);
+        }
       }
     }
   }
@@ -313,8 +325,9 @@ extern "C" const char* tsr_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// xr, xi [bins, m, D], w2 [bins, 2D, K] -> out [2, bins, m, K]; all bf16.
-// D % 8 == 0, K % 8 == 0 (16-byte row strides), 16-byte aligned bases.
+// xr, xi [bins, m, D], w2 [bins, 2D, K] -> out [2 (hi, lo), 2, bins, m,
+// K]; all bf16.  D % 8 == 0, K % 8 == 0 (16-byte row strides), 16-byte
+// aligned bases.
 extern "C" int tsr_fft_binmm(const void* xr, const void* xi, const void* w2, void* out,
                              int bins, int m, int D, int K, void* stream) {
   CUtensorMap map_xr, map_xi, map_w2;

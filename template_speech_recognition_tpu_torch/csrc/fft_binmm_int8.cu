@@ -10,13 +10,17 @@
 // W2[z] = [Wa ; Wb] (2D x K):
 //   Re = Xr . Wa + Xi . Wb,   Im = Xi . Wa - Xr . Wb
 // summed exactly in int32 (|acc| <= 2D 127^2 = 66,064,384 at D 2048) and
-// flushed as bf16_rn(f32_rn(acc) * sc[z][k]) into out[part][z][r][k], the
-// arithmetic of the plain version, so the two agree bitwise.
+// flushed as two planes, hi = bf16_rn(v), v = f32_rn(acc) * sc[z][k], at
+// out[0][part][z][r][k] and lo = bf16_rn(v - f32(hi)) at
+// out[1][part][z][r][k], the arithmetic of the plain version, so the two
+// agree bitwise.  hi + lo keeps v to ~2^-16 of it: two evaluations whose
+// int8 spectra differ by a quantum do not round a low bin's product a
+// whole bf16 step apart.
 //
 // What bounds it on the H100: bytes.  At the scan's shapes (bins 80, m
-// 192, D 2048, K 1024) W2 (336 MB) + xr/xi (63 MB) + the bf16 output (63
-// MB) take 0.138 ms at 3.35 TB/s; the 258 G int8 operations take 0.130
-// ms at 1979 TOP/s.  Only wgmma reaches that rate, and it reads its
+// 192, D 2048, K 1024) W2 (336 MB) + xr/xi (63 MB) + the two bf16 output
+// planes (126 MB) take 0.157 ms at 3.35 TB/s; the 258 G int8 operations
+// take 0.130 ms at 1979 TOP/s.  Only wgmma reaches that rate, and it reads its
 // operands from shared memory in the swizzled layouts TMA writes.
 //
 // Design: the bf16 kernel's (fft_binmm.cu) on int8 wgmma, m64n256k32
@@ -484,37 +488,45 @@ binmm_int8_kernel(const __grid_constant__ CUtensorMap map_xr,
     const uint32_t stage_out = base + part * OUT_BYTES;
     const float* scz = sc + (size_t)z * K;
     const int tq = lane & 3;
+    // the hi plane, then the lo plane through the same staging tile
+    for (int plane = 0; plane < 2; ++plane) {
 #pragma unroll
-    for (int g = 0; g < BN / 8; ++g) {
-      const int col = n0 + 8 * g + 2 * tq;
-      float2 s2 = make_float2(0.f, 0.f);
-      if (col < K) s2 = *reinterpret_cast<const float2*>(scz + col);
+      for (int g = 0; g < BN / 8; ++g) {
+        const int col = n0 + 8 * g + 2 * tq;
+        float2 s2 = make_float2(0.f, 0.f);
+        if (col < K) s2 = *reinterpret_cast<const float2*>(scz + col);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = 16 * warp + (lane >> 2) + 8 * h;
-        const float v0 = __fmul_rn(__int2float_rn(acc[4 * g + 2 * h]), s2.x);
-        const float v1 = __fmul_rn(__int2float_rn(acc[4 * g + 2 * h + 1]), s2.y);
-        __nv_bfloat162 p2 = __floats2bfloat162_rn(v0, v1);
-        // box g/8 holds columns [64 (g/8), +64); 16-byte chunk g%8 of the
-        // row, swizzled by the row's low three bits
-        const uint32_t addr = stage_out + (g >> 3) * OUT_BOX + row * 128 +
-                              (((g & 7) ^ (row & 7)) << 4) + 4 * tq;
-        asm volatile("st.shared.b32 [%0], %1;\n"
-                     :: "r"(addr), "r"(*reinterpret_cast<uint32_t*>(&p2)) : "memory");
+        for (int h = 0; h < 2; ++h) {
+          const int row = 16 * warp + (lane >> 2) + 8 * h;
+          const float v0 = __fmul_rn(__int2float_rn(acc[4 * g + 2 * h]), s2.x);
+          const float v1 = __fmul_rn(__int2float_rn(acc[4 * g + 2 * h + 1]), s2.y);
+          __nv_bfloat162 p2 = __floats2bfloat162_rn(v0, v1);
+          if (plane) {
+            const float2 hf = __bfloat1622float2(p2);
+            p2 = __floats2bfloat162_rn(v0 - hf.x, v1 - hf.y);
+          }
+          // box g/8 holds columns [64 (g/8), +64); 16-byte chunk g%8 of
+          // the row, swizzled by the row's low three bits
+          const uint32_t addr = stage_out + (g >> 3) * OUT_BOX + row * 128 +
+                                (((g & 7) ^ (row & 7)) << 4) + 4 * tq;
+          asm volatile("st.shared.b32 [%0], %1;\n"
+                       :: "r"(addr), "r"(*reinterpret_cast<uint32_t*>(&p2)) : "memory");
+        }
       }
-    }
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    named_sync(1 + part, 128);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      named_sync(1 + part, 128);
 #ifndef BINMM_NO_STORE
-    if ((threadIdx.x & 127) == 0) {
+      if ((threadIdx.x & 127) == 0) {
 #pragma unroll
-      for (int b = 0; b < NBOX; ++b)
-        if (n0 + 64 * b < K) tma_store_3d(&map_out, stage_out + b * OUT_BOX, n0 + 64 * b, r0,
-                                          part * bins + z);
-      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-    }
+        for (int b = 0; b < NBOX; ++b)
+          if (n0 + 64 * b < K) tma_store_3d(&map_out, stage_out + b * OUT_BOX, n0 + 64 * b, r0,
+                                            (2 * plane + part) * bins + z);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      }
 #endif
+      if (plane == 0) named_sync(1 + part, 128);    // the staging tile is read out
+    }
   }
 }
 
@@ -567,8 +579,8 @@ extern "C" const char* tsr_cuda_error_string(int err) {
 
 // xr, xi [bins, m, D] int8 with byte strides {row_stride, bin_stride}
 // (multiples of 16), w2t the K-major spectra [bins, 2, K, Dp] int8 (Dp a
-// multiple of 16, >= D), sc [bins, K] f32 -> out [2, bins, m, K] bf16.
-// K % 8 == 0, 16-byte aligned bases.
+// multiple of 16, >= D), sc [bins, K] f32 -> out [2 (hi, lo), 2, bins, m,
+// K] bf16.  K % 8 == 0, 16-byte aligned bases.
 extern "C" int tsr_fft_binmm_int8(const void* xr, const void* xi, const void* w2t,
                                   const void* sc, void* out, long long row_stride,
                                   long long bin_stride, int bins, int m, int D, int Dp, int K,
@@ -578,8 +590,8 @@ extern "C" int tsr_fft_binmm_int8(const void* xr, const void* xi, const void* w2
   if (!make_map(&map_xr, s8, 1, xr, D, m, bins, row_stride, bin_stride) ||
       !make_map(&map_xi, s8, 1, xi, D, m, bins, row_stride, bin_stride) ||
       !make_map(&map_w, s8, 1, w2t, D, K, 2 * (uint64_t)bins, Dp, (uint64_t)K * Dp) ||
-      !make_map(&map_out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, out, K, m, 2 * (uint64_t)bins,
-                2 * (uint64_t)K, 2 * (uint64_t)K * m))
+      !make_map(&map_out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, out, K, m,
+                4 * (uint64_t)bins, 2 * (uint64_t)K, 2 * (uint64_t)K * m))
     return cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
       binmm_int8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);

@@ -15,7 +15,13 @@ are computed as GEMMs in the frequency domain:
 
 Numerics follow the reference: on the card every GEMM operand is bf16
 (``g``, ``imat``, ``w2``, the map, ``xr``/``xi``, ``ycat``) with fp32
-accumulation; on the CPU everything is float32.
+accumulation; on the CPU everything is float32.  One step goes further
+than the reference: on the card kernel 4 (or 6) writes ``ycat`` as two
+bf16 planes, hi and the remainder lo, and kernel 5
+contracts both against ``imat`` stacked twice, so the product is not
+rounded to bf16 (a trained bank's low bins run ~60x above its scores:
+one bf16 step of them was ~0.6% of max|score| at the soak's K 10,000
+bank; ROADMAP Queue 3).
 
 int8 spectra (``build_fft_bank(mm_dtype=torch.int8)``, the config-5
 bank-scale mode): W2 is quantized per (bin, template) once, the block
@@ -139,11 +145,12 @@ def _dft_basis(nfft: int, dtype, device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=16)
-def _idft_basis(nfft: int, hop: int, dtype, device) -> torch.Tensor:
+def _idft_basis(nfft: int, hop: int, dtype, device, copies: int = 1) -> torch.Tensor:
     """imat = [icos ; -isin] [2 bins, hop], the iDFT's basis, made once
-    per (nfft, hop, dtype, device) for the same reason."""
+    per (nfft, hop, dtype, device) for the same reason; ``copies`` of it
+    stacked (2: for the hi and lo planes of a bf16 ``ycat``)."""
     icmat, ismat = _idft_mats(nfft, hop, dtype, device)
-    return torch.cat([icmat, -ismat], dim=0).contiguous()
+    return torch.cat([icmat, -ismat] * copies, dim=0).contiguous()
 
 
 def _bank_spectra(w: torch.Tensor, nfft: int, mm_dtype) -> torch.Tensor:
@@ -280,9 +287,10 @@ def fft_sliding_scores(
         ycat = binmm_int8_fn(xq_r, xq_i, bank.w2, sc, out_dtype=mm,
                              w2_kmajor=bank.w2_kmajor)
     else:
-        ycat = binmm_fn(xr, xi, bank.w2)                       # [2, bins, m, K]
-    imat = _idft_basis(nfft, hop, mm, dev)                     # [2*bins, hop]
-    scores_t = idft_fn(ycat.reshape(2 * bins, m * k), imat, bank.c, nblk)
+        ycat = binmm_fn(xr, xi, bank.w2)                       # [(2,) 2, bins, m, K]
+    ycat = ycat.reshape(-1, m * k)                             # bf16: hi and lo planes
+    imat = _idft_basis(nfft, hop, mm, dev, ycat.shape[0] // (2 * bins))
+    scores_t = idft_fn(ycat, imat, bank.c, nblk)
     if bank.num_templates and bank.num_templates != k:
         scores_t = scores_t[..., : bank.num_templates].contiguous()
     if time_major:

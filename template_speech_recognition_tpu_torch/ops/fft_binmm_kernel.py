@@ -5,8 +5,16 @@ Replaces ``template_speech_recognition_tpu/ops/fft_binmm_pallas.py``
 202), with the 3-D wrapper ``detect/fft_scorer.py::_binmm_pallas``.
 
 Per frequency bin: ``[Xr | Xi ; Xi | -Xr] [2m, 2D] @ W2 [2D, K]`` with
-fp32 accumulation, written ``[2, bins, m, K]`` in the input dtype:
-``y[0]`` is the real part of ``Xf * conj(Wf)``, ``y[1]`` the imaginary.
+fp32 accumulation: ``y[0]`` is the real part of ``Xf * conj(Wf)``,
+``y[1]`` the imaginary.  In float32 (the CPU's scan) it is written
+``[2, bins, m, K]``.  In bf16 it is written as two such planes, ``[2
+(hi, lo), 2, bins, m, K]``: hi = ``bf16(y32)`` and lo = ``bf16(y32 -
+f32(hi))``, so hi + lo keeps the fp32 sum to ~2^-16 of it and the bf16
+output does not round the product.  A trained bank's low bins run ~60x above its largest score; at
+the soak's K 10,000 bank one bf16 step of them moved a score by ~0.6%
+of max|score|, past the scan's bf16 class, between two evaluations that
+summed in another order (the kernel and its plain version; PERF.md,
+ROADMAP Queue 3).
 
 CUDA design (``csrc/fft_binmm.cu``): TMA loads into a 4-stage
 shared-memory ring feed ``wgmma`` from one producer warp.  A block owns
@@ -25,14 +33,14 @@ from device memory about once.
 
 What bounds it on the H100: bf16 operations, just above the ridge.
 258 GFLOP (m=192, D=2048, K=1024, bins=80) take 0.26 ms at 989
-TFLOP/s; W2 (671 MB) plus xr/xi and the output take 0.23 ms.  The
-mma.sync routine it replaced ran at ~15% of that peak, fed from
-registers, without a deep enough ring to hide the W2 stream.
+TFLOP/s; W2 (671 MB) plus xr/xi and the two output planes take 0.26
+ms.  The mma.sync routine it replaced ran at ~15% of that peak, fed
+from registers, without a deep enough ring to hide the W2 stream.
 
 The int8 mode (``fft_binmm_int8``, the ``DetectConfig.int8_spectra``
 bank) replaces the same ``pallas_call`` running ``_kernel_q`` (line
 81): int8 x int8 -> exact int32, flushed as ``bf16(f32(acc) * sc[bin,
-k])``.  Its kernel (``csrc/fft_binmm_int8.cu``) is the bf16 kernel's
+k])`` and its remainder, the two planes of the bf16 mode.  Its kernel (``csrc/fft_binmm_int8.cu``) is the bf16 kernel's
 pipeline on int8 ``wgmma`` (m64n256k32, s8 x s8 -> s32), with two
 differences that int8 ``wgmma`` forces: it takes only K-major operands,
 so W2 comes as the bank's K-major copy (``kmajor_spectra``, built once
@@ -44,8 +52,8 @@ needs 16-byte row strides: xr and xi come as views of rows padded to
 16 bytes (``detect.fft_scorer.quantize_block_spectra`` writes them so)
 and the K-major copy's rows are padded the same way.  The bf16 output
 is staged in shared memory and stored by TMA.
-What bounds it: bytes, 461 MB (int8 W2 336 MB, xr/xi, bf16 output) in
-0.138 ms at 3.35 TB/s; 258 G int8 operations take 0.130 ms at 1979
+What bounds it: bytes, 525 MB (int8 W2 336 MB, xr/xi, two bf16 output
+planes) in 0.157 ms at 3.35 TB/s; 258 G int8 operations take 0.130 ms at 1979
 TOP/s.  The TPU path's ``k <= 4096`` gate (a Mosaic crash) is not
 carried over.
 """
@@ -66,7 +74,8 @@ INT8_REPLACES = "template_speech_recognition_tpu/ops/fft_binmm_pallas.py:81"
 
 def fft_binmm_plain(xr, xi, w2):
     """Plain PyTorch version: materialize the packed operand, one fp32
-    batched product (TF32 off, PyTorch's default), round."""
+    batched product (TF32 off, PyTorch's default), round (in bf16, the
+    remainder rounded too, a second plane)."""
     bins, d = xr.shape[0], xr.shape[-1]
     xr3 = xr.reshape(bins, -1, d).to(torch.float32)
     xi3 = xi.reshape(bins, -1, d).to(torch.float32)
@@ -74,8 +83,8 @@ def fft_binmm_plain(xr, xi, w2):
     x2 = torch.cat(
         [torch.cat([xr3, xi3], dim=2), torch.cat([xi3, -xr3], dim=2)], dim=1
     )                                                      # [bins, 2m, 2D]
-    y = torch.bmm(x2, w2.to(torch.float32)).to(xr.dtype)   # [bins, 2m, K]
-    return torch.stack([y[:, :m], y[:, m:]])
+    y = torch.bmm(x2, w2.to(torch.float32))               # [bins, 2m, K]
+    return _planes(y[:, :m], y[:, m:], xr.dtype)
 
 
 def pad_spectra(w2: torch.Tensor, d: int) -> torch.Tensor:
@@ -93,8 +102,9 @@ def pad_spectra(w2: torch.Tensor, d: int) -> torch.Tensor:
 
 def fft_binmm(xr, xi, w2):
     """xr, xi [bins, m, D] (or [bins, B, nblk, D]) x W2 [bins, 2D, K]
-    -> [2, bins, m, K].  CPU tensors take the plain version; CUDA
-    tensors launch the kernel (bf16 only; K a multiple of 8).  Any D
+    -> [2, bins, m, K] in float32, [2 (hi, lo), 2, bins, m, K] in bf16.
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (bf16 only; K a multiple of 8).  Any D
     and any base: where the rows do not suit TMA the kernel runs on
     copies padded to D8 columns (``pad_spectra`` for W2); the scan's
     bank and spectra come padded already, so it copies nothing."""
@@ -121,7 +131,7 @@ def fft_binmm(xr, xi, w2):
         d = xr3.shape[2]
     _cuda.require(xr3, "xr", torch.bfloat16, 3)
     _cuda.require(xi3, "xi", torch.bfloat16, 3)
-    out = torch.empty((2, bins, m, k), dtype=torch.bfloat16, device=xr.device)
+    out = torch.empty((2, 2, bins, m, k), dtype=torch.bfloat16, device=xr.device)
     lib = _cuda.load("fft_binmm")
     fn = _cuda.declare(lib, "tsr_fft_binmm", 4, 4)
     err = fn(
@@ -151,12 +161,23 @@ def kmajor_spectra(w2: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _planes(re: torch.Tensor, im: torch.Tensor, out_dtype) -> torch.Tensor:
+    """fp32 real and imaginary parts [bins, m, K] -> [2, bins, m, K] in
+    float32, or in a narrower ``out_dtype`` [2 (hi, lo), 2, bins, m, K]:
+    hi rounded, lo the remainder rounded."""
+    y = torch.stack([re, im])
+    if out_dtype == torch.float32:
+        return y
+    hi = y.to(out_dtype)
+    return torch.stack([hi, (y - hi.to(torch.float32)).to(out_dtype)])
+
+
 def fft_binmm_int8_plain(xr, xi, w2, sc, out_dtype=torch.bfloat16, w2_kmajor=None):
     """Plain PyTorch version of the int8 mode: the packed operand and
     one float64 batched product, exact for int8 operands (every partial
     sum is an integer below 2**53), then ``f32(acc) * sc`` rounded to
-    ``out_dtype``.  ``w2_kmajor`` is the kernel's operand and is not
-    read here."""
+    ``out_dtype`` (in bf16, the remainder too, a second plane).
+    ``w2_kmajor`` is the kernel's operand and is not read here."""
     bins, d = xr.shape[0], xr.shape[-1]
     xr3 = xr.reshape(bins, -1, d).to(torch.float64)
     xi3 = xi.reshape(bins, -1, d).to(torch.float64)
@@ -165,8 +186,8 @@ def fft_binmm_int8_plain(xr, xi, w2, sc, out_dtype=torch.bfloat16, w2_kmajor=Non
         [torch.cat([xr3, xi3], dim=2), torch.cat([xi3, -xr3], dim=2)], dim=1
     )                                                      # [bins, 2m, 2D]
     acc = torch.bmm(x2, w2.to(torch.float64))              # [bins, 2m, K]
-    y = (acc.to(torch.float32) * sc.to(torch.float32)[:, None, :]).to(out_dtype)
-    return torch.stack([y[:, :m], y[:, m:]])
+    v = acc.to(torch.float32) * sc.to(torch.float32)[:, None, :]
+    return _planes(v[:, :m], v[:, m:], out_dtype)
 
 
 # the int8 kernel's contraction step: one 128-byte swizzled row of int8
@@ -179,7 +200,8 @@ def fft_binmm_int8_emulated(xr, xi, w2_kmajor, sc, out_dtype=torch.bfloat16):
     past D; the K-major copy zero past D in each half), W2's second half
     (Wb) first: the real part sums ``Xi . Wb`` and the imaginary part
     ``Xr . Wb``, which it negates at the seam; then the first half (Wa):
-    ``Xr . Wa`` and ``Xi . Wa``.  Flushed as ``f32(acc) * sc``."""
+    ``Xr . Wa`` and ``Xi . Wa``.  Flushed as ``f32(acc) * sc``, in
+    the plain version's planes."""
     bins, d = xr.shape[0], xr.shape[-1]
     xr3, xi3 = xr.reshape(bins, -1, d), xi.reshape(bins, -1, d)
     m, k = xr3.shape[1], w2_kmajor.shape[2]
@@ -203,7 +225,7 @@ def fft_binmm_int8_emulated(xr, xi, w2_kmajor, sc, out_dtype=torch.bfloat16):
             acc[0] += torch.bmm(a_re[:, :, ks], wt)
             acc[1] += torch.bmm(a_im[:, :, ks], wt)
     scf = sc.to(torch.float32)[:, None, :]
-    return torch.stack([(a.to(torch.float32) * scf).to(out_dtype) for a in acc])
+    return _planes(*(a.to(torch.float32) * scf for a in acc), out_dtype)
 
 
 def int8_tma_strides(x3, name="x"):
@@ -226,9 +248,10 @@ def int8_tma_strides(x3, name="x"):
 
 def fft_binmm_int8(xr, xi, w2, sc, out_dtype=torch.bfloat16, w2_kmajor=None):
     """int8 xr, xi [bins, m, D] (or [bins, B, nblk, D]) x int8 W2
-    [bins, 2D, K], dequantized by ``sc`` [bins, K] f32 -> [2, bins, m, K]
-    in ``out_dtype``.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel, whose output is bf16.
+    [bins, 2D, K], dequantized by ``sc`` [bins, K] f32 -> in ``out_dtype``
+    the planes of ``fft_binmm``'s output in that dtype.  CPU tensors
+    take the plain version; CUDA tensors launch the kernel, whose output
+    is bf16.
 
     On the card xr and xi must have 16-byte row strides (views of rows
     padded to 16 bytes, as ``quantize_block_spectra`` returns them),
@@ -268,7 +291,7 @@ def fft_binmm_int8(xr, xi, w2, sc, out_dtype=torch.bfloat16, w2_kmajor=None):
             or w2_kmajor.data_ptr() % 16):
         raise ValueError(f"w2_kmajor {tuple(w2_kmajor.shape)}: expected ({bins}, 2, {k}, Dp) "
                          f"with Dp >= {d} a multiple of 16, 16-byte aligned")
-    out = torch.empty((2, bins, m, k), dtype=torch.bfloat16, device=xr.device)
+    out = torch.empty((2, 2, bins, m, k), dtype=torch.bfloat16, device=xr.device)
     lib = _cuda.load("fft_binmm_int8")
     fn = _cuda.declare(lib, "tsr_fft_binmm_int8", 5, 5, 2)
     err = fn(

@@ -81,8 +81,8 @@ def test_int8_binmm_plain_matches_pallas(four_d):
     for fn in (fft_binmm_int8_plain, fft_binmm_int8):
         got = fn(*args)
         assert got.dtype == torch.bfloat16
-        assert tuple(got.shape) == (2, bins, nb * nblk, k)
-        np.testing.assert_array_equal(got.to(torch.float32).numpy(), want)
+        assert tuple(got.shape) == (2, 2, bins, nb * nblk, k)       # hi and lo planes
+        np.testing.assert_array_equal(got[0].to(torch.float32).numpy(), want)
 
 
 def test_int8_binmm_plain_matches_reference_at_log_mel_width():
@@ -100,7 +100,7 @@ def test_int8_binmm_plain_matches_reference_at_log_mel_width():
                             preferred_element_type=jnp.int32)
     y = (y.astype(jnp.float32) * jnp.asarray(sc)[:, None, :]).astype(jnp.bfloat16)
     want = np.asarray(jnp.stack([y[:, :m], y[:, m:]]).astype(jnp.float32))
-    got = fft_binmm_int8(*[torch.from_numpy(a) for a in (xr, xi, w2, sc)])
+    got = fft_binmm_int8(*[torch.from_numpy(a) for a in (xr, xi, w2, sc)])[0]   # hi plane
     np.testing.assert_array_equal(got.to(torch.float32).numpy(), want)
 
 
@@ -229,7 +229,7 @@ def _emulated(xr, xi, w2, sc):
     t = [torch.from_numpy(a) for a in (xr, xi, w2, sc)]
     got = fft_binmm_int8_emulated(t[0], t[1], kmajor_spectra(t[2]), t[3])
     assert got.dtype == torch.bfloat16
-    return got.to(torch.float32).numpy()
+    return got[0].to(torch.float32).numpy()                     # the hi plane
 
 
 @pytest.mark.parametrize("four_d", [True, False])
@@ -262,7 +262,7 @@ def test_int8_emulated_schedule_matches_pallas(four_d, full):
         interpret=True,
     )).astype(np.float32)
     np.testing.assert_array_equal(_emulated(xr, xi, w2, sc), want)
-    plain = fft_binmm_int8_plain(*[torch.from_numpy(a) for a in (xr, xi, w2, sc)])
+    plain = fft_binmm_int8_plain(*[torch.from_numpy(a) for a in (xr, xi, w2, sc)])[0]
     np.testing.assert_array_equal(plain.to(torch.float32).numpy(), want)
     if full:
         got = fft_binmm_int8_plain(*[torch.from_numpy(a) for a in (xr, xi, w2)],
@@ -289,7 +289,7 @@ def test_int8_emulated_schedule_ragged(m, d, k):
     want = _xla_int8_binmm(xr, xi, w2, sc)
     np.testing.assert_array_equal(_emulated(xr, xi, w2, sc), want)
     t = [torch.from_numpy(a) for a in (xr, xi, w2, sc)]
-    np.testing.assert_array_equal(fft_binmm_int8(*t).to(torch.float32).numpy(), want)
+    np.testing.assert_array_equal(fft_binmm_int8(*t)[0].to(torch.float32).numpy(), want)
 
 
 def test_int8_emulated_schedule_reads_the_padded_views():

@@ -591,8 +591,11 @@ def test_config_json_round_trip():
 
 
 # the port's scripts at the repo root, held to the package's import rules
-# (bench_cuda.py takes its corpus, bank and scan loop from chip_smoke.py)
-PORT_SCRIPTS = ("bench_cuda", "chip_smoke")
+# (bench_cuda.py takes its corpus, bank and scan loop from chip_smoke.py;
+# chip_smoke.py runs verify_cuda.py's checks and the two soaks, which
+# share card_checks.py's checks with it)
+PORT_SCRIPTS = ("bench_cuda", "chip_smoke", "card_checks", "verify_cuda", "soak_cuda",
+                "soak_bank10k_cuda")
 
 
 def _port_modules():

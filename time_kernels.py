@@ -14,7 +14,10 @@ Kernel 3 takes random binary bf16 maps [8, 3072, D] at 0.15 density
 and the scorer's DFT basis at nfft 159 (hop 128, 24 windows), at D =
 2048 and at the log-mel D = 504.  Kernel 4 takes random normal bf16
 spectra and W2 at the scan's shape (bins 80, m 192, K 1024) at D = 2048
-and 504 (``fft_binmm``, ``fft_binmm_d504``).
+and 504 (``fft_binmm``, ``fft_binmm_d504``) and writes the planes its
+scan takes (hi and lo, or in an older checkout one).  Kernel 5 takes a
+random bf16 ``ycat`` and basis of 160 rows (2 x 80 bins) for each of
+those planes (``binmm_planes`` in the output), hop 128, m 192, K 1024.
 Kernel 6 takes uniform int8 spectra at the scan's shape (bins 80, m 192,
 K 1024) at D = 2048 and at the log-mel D = 504: a checkout whose int8
 bin matmul reads the bank's K-major copy gets it and rows padded to 16
@@ -139,6 +142,12 @@ def one(root: str) -> dict:
     frames = torch.randn(N_ROWS, FL, device=dev, generator=g)
     ycat = torch.randn(TWO_BINS, B * NBLK * K, device=dev, generator=g).to(torch.bfloat16)
     imat = torch.randn(TWO_BINS, HOP, device=dev, generator=g).to(torch.bfloat16)
+    # kernel 5 takes one 2-bins block of rows for each bf16 plane the
+    # checkout's kernel 4 writes (hi and lo, or one), as its scan does
+    x1 = torch.zeros(1, 1, 8, dtype=torch.bfloat16, device=dev)
+    n_planes = k6.fft_binmm(x1, x1, torch.zeros(1, 16, 8, dtype=torch.bfloat16,
+                                              device=dev)).numel() // 16
+    ycat, imat = ycat.repeat(n_planes, 1), imat.repeat(n_planes, 1)
     c = torch.randn(K, device=dev, generator=g)
     planes = torch.randn(4, B, T_PAD, F, device=dev, generator=g)
     valid = torch.full((B,), VALID, dtype=torch.int32, device=dev)
@@ -213,7 +222,7 @@ def one(root: str) -> dict:
         x = (torch.rand(B, T_PAD, d, device=dev, generator=g) < 0.15).to(torch.bfloat16)
         calls["fft_block_dft" if d == 2048 else "fft_block_dft_d504"] = (
             lambda x=x: k3.fft_block_dft(x, g_dft, NFFT_S, HOP, NBLK))
-    out = {"root": root}
+    out = {"root": root, "binmm_planes": n_planes}
     for name, fn in calls.items():
         out[name] = {"loop100_ms": time_ms(torch, fn, loop=100), "one_launch_ms": time_ms(torch, fn)}
     gemm = torch.randn(NB_EX, M_EX, K, L_CORR, device=dev, generator=g) - 2.0
