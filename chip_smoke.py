@@ -393,7 +393,7 @@ def time_once(torch, fn):
     return out, a.elapsed_time(b)
 
 
-def device_ms_traced(torch, fn):
+def traced_device_ms(torch, fn):
     """Device time of ``fn`` from a ``torch.profiler`` trace: the union of
     its device intervals (kernels, copies, memsets) in ms, the device ms
     by name and the number of device operations; (None, {}, 0) if the
@@ -418,8 +418,8 @@ def report_busy(torch, say, label, run, build, ctr):
     """The scan loop's device time (a traced run of the whole scan less a
     traced bank build) against the loop wall of the untraced run, and the
     five names with the most device time in the loop."""
-    total, names, n_ops = device_ms_traced(torch, run)
-    built, built_names, n_built = device_ms_traced(torch, build)
+    total, names, n_ops = traced_device_ms(torch, run)
+    built, built_names, n_built = traced_device_ms(torch, build)
     if total is None or built is None:
         say(f"{label}: device busy share not measured (the trace holds no device event)")
         return None
@@ -1526,7 +1526,7 @@ def mel_kernel_checks(torch, M, dev, wavs, nvalid, valid, frames2, bank_mel, rec
 def upload_ms(torch, run):
     """The device time of the host-to-device copies of one traced
     ``run`` in ms, or None when the trace holds no device event."""
-    total, names, _n = device_ms_traced(torch, run)
+    total, names, _n = traced_device_ms(torch, run)
     if total is None:
         return None
     return sum(ms for n, ms in names.items() if "HtoD" in n)
@@ -1964,7 +1964,7 @@ def training_phase(torch, dev, C, say, scan_corpus, scan_cfg, flips, record, row
     (sg, bg), em_ms = time_once(
         torch, lambda: bernoulli_mixture_em_restarts(x, resps, num_iters=iters, tol=0.0))
     it_g = int(sg.iteration)
-    total, names, n_ops = device_ms_traced(
+    total, names, n_ops = traced_device_ms(
         torch, lambda: bernoulli_mixture_em_restarts(x, resps, num_iters=iters, tol=0.0))
     if total is None:
         say("training: EM's device time by name not measured (no device event traced)")
@@ -4279,15 +4279,11 @@ def main(only: str | None = None) -> int:
           f"the scan's select_binspread launches by variant: {k2.route_launches}")
     take_launches(rows, SCAN_KERNELS, counts)
     ctr = res.counters
-    stages = " ".join(
-        f"{s} {ctr.get(f'device_ms_{s}', 0.0) / ctr['batches']:.3f} ms"
-        for s in ("frontend", "score", "nms")
-    )
     check(ctr["batches"] == 3, f"expected 3 batches, got {ctr['batches']}")
     say(f"scan: {ctr['utterances']:.0f} utterances, {ctr['audio_seconds']:.1f} audio-s, "
         f"{ctr['audio_s_per_s']:.1f} audio-s/s (scan loop {ctr['time_scan_s']:.4f} s; "
-        f"with the bank build {wall:.4f} s); mean device time per batch "
-        f"({ctr['batches']:.0f} batches): {stages} (CUDA events); launches {counts}")
+        f"with the bank build {wall:.4f} s; {ctr['batches']:.0f} batches); "
+        f"launches {counts}")
 
     def bank_build(b, int8_dtw=False):
         """What ``detect_corpus_stream`` does before its loop: the bf16
@@ -4362,15 +4358,10 @@ def main(only: str | None = None) -> int:
     take_launches(rows, ("pair_llr", "banded_dtw"), counts)
     take_launches(rows, ("fft_binmm_int8",), counts, shape=INT8_BENCH)
     ctr = res.counters
-    stages = " ".join(
-        f"{s} {ctr.get(f'device_ms_{s}', 0.0) / ctr['batches']:.3f} ms"
-        for s in ("frontend", "score", "nms", "dtw")
-    )
     say(f"DTW + int8 scan: {ctr['utterances']:.0f} utterances, "
         f"{ctr['audio_seconds']:.1f} audio-s, {ctr['audio_s_per_s']:.1f} audio-s/s (scan "
-        f"loop {ctr['time_scan_s']:.4f} s; with the bank build {wall:.4f} s); mean device "
-        f"time per batch ({ctr['batches']:.0f} batches): {stages} (CUDA events); "
-        f"launches {counts}")
+        f"loop {ctr['time_scan_s']:.4f} s; with the bank build {wall:.4f} s; "
+        f"{ctr['batches']:.0f} batches); launches {counts}")
     ops_dtw = report_busy(torch, say, "DTW + int8 scan",
                           lambda: detect_corpus_stream(corpus, bank, dtw_cfg, target_phone="aa"),
                           bank_build(bank, int8_dtw=True), ctr)
@@ -4394,11 +4385,10 @@ def main(only: str | None = None) -> int:
     wall = time.perf_counter() - t0
     counts = _cuda.launch_counts()
     check(counts.get("banded_dtw", 0) > 0, "exhaustive rescore did not launch banded_dtw")
-    ctr = res.counters
     ref = detect_corpus_stream(head, bank, ex_cfg, target_phone="aa", plain=True)
     say(f"exhaustive rescore (top_r 0, {B} x {top_k} peaks x {K} templates): {wall:.3f} s, "
-        f"dtw stage {ctr.get('device_ms_dtw', 0.0):.3f} ms (CUDA events), launches {counts}")
-    total_ex, names_ex, n_ex = device_ms_traced(
+        f"launches {counts}")
+    total_ex, names_ex, n_ex = traced_device_ms(
         torch, lambda: detect_corpus_stream(head, bank, ex_cfg, target_phone="aa"))
     if total_ex is None:
         say("exhaustive rescore: device time by name not measured (no device event traced)")
@@ -4448,15 +4438,10 @@ def main(only: str | None = None) -> int:
             take_launches(rows, ("fft_block_dft",), counts, shape=DFT_MEL)
         else:
             take_launches(rows, ("fft_binmm_int8",), counts, shape=INT8_MEL)
-        stages = " ".join(
-            f"{s_} {ctr.get(f'device_ms_{s_}', 0.0) / ctr['batches']:.3f} ms"
-            for s_ in ("frontend", "score", "nms", "dtw") if f"device_ms_{s_}" in ctr
-        )
         say(f"{label}: {ctr['utterances']:.0f} utterances, {ctr['audio_seconds']:.1f} "
             f"audio-s, {ctr['audio_s_per_s']:.1f} audio-s/s (scan loop "
-            f"{ctr['time_scan_s']:.4f} s; with the bank build {wall:.4f} s); mean device "
-            f"time per batch ({ctr['batches']:.0f} batches): {stages} (CUDA events); "
-            f"launches {counts}")
+            f"{ctr['time_scan_s']:.4f} s; with the bank build {wall:.4f} s; "
+            f"{ctr['batches']:.0f} batches); launches {counts}")
         report_busy(torch, say, label,
                     lambda: detect_corpus_stream(corpus, bank_mel, mcfg, target_phone="aa"),
                     bank_build(bank_mel, int8_dtw=bool(dkw)), ctr)
@@ -4506,10 +4491,6 @@ def main(only: str | None = None) -> int:
     for name in ("fft_block_dft", "fft_binmm", "fft_idft", "correlation"):
         check(counts.get(name, 0) == 0, f"the conv scan launched {name}")
     ctr = res.counters
-    stages = " ".join(
-        f"{s_} {ctr.get(f'device_ms_{s_}', 0.0) / ctr['batches']:.3f} ms"
-        for s_ in ("frontend", "score", "nms")
-    )
     dk = res.detections
     check(len(dk.scores) > 0 and bool(np.isfinite(dk.scores).all()), "no conv detections")
     # printed only: the bf16 FFT scorer moves borderline NMS peaks, so
@@ -4517,8 +4498,8 @@ def main(only: str | None = None) -> int:
     frac, id_frac, diff, top, _ = match_detections(dk, fft_dets)
     say(f"conv scan: {ctr['utterances']:.0f} utterances, {ctr['audio_seconds']:.1f} audio-s, "
         f"{ctr['audio_s_per_s']:.1f} audio-s/s (scan loop {ctr['time_scan_s']:.4f} s; with the "
-        f"bank build {wall:.4f} s); mean device time per batch ({ctr['batches']:.0f} "
-        f"batches): {stages} (CUDA events); launches {counts}; vs the fft scan (not a "
+        f"bank build {wall:.4f} s; {ctr['batches']:.0f} batches); launches {counts}; "
+        f"vs the fft scan (not a "
         f"check): {len(dk.scores)} vs {len(fft_dets.scores)} detections, {frac:.4f} matched "
         f"peaks, {id_frac:.4f} same template, score max diff {diff:.6g} = {diff / top:.3g} of "
         f"max|score|")

@@ -34,7 +34,16 @@ Counterpart of ``template_speech_recognition_tpu.scan``
   the other;
 * ``SCAN_UPLOAD_INT16=1`` (PCM16 upload): waveforms go up as int16
   (``round(w * 32768)``, clipped) and become ``float32 / 32768`` on the
-  device, half the bytes of the float upload; exact for PCM16 sources.
+  device, half the bytes of the float upload; exact for PCM16 sources;
+* under ``torch.profiler`` the loop opens three host-only ranges
+  (``utils.profiling.named_scope``): ``stream.next`` around each
+  ``next()`` on the corpus's iterator, ``stream.stage`` around a batch's
+  host buffers (allocated, zeroed and filled, the lazy decode inside)
+  and ``stream.drain`` around a fetch's wait, unpacking and manifest
+  record.  None encloses device work: the profiler would report such a
+  range once more as a device event.  The ``staging_bytes`` counter sums
+  the host buffers the loop allocates (each computed batch's waveforms
+  and lengths; on the card each fetch's).
 
 ``stream_scan`` is the loop shared with the mesh-sharded scan
 (``parallel.detect_sharded``), which passes its own upload (``feed``:
@@ -56,6 +65,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import os
 
 import numpy as np
@@ -82,8 +92,7 @@ from template_speech_recognition_tpu_torch.frontend import frontend_batch_flat
 from template_speech_recognition_tpu_torch.models.bank import TemplateBank
 from template_speech_recognition_tpu_torch.ops.layout import filters_to_flat
 from template_speech_recognition_tpu_torch.utils.metrics import StageCounters
-
-STAGES = ("frontend", "score", "nms", "dtw")
+from template_speech_recognition_tpu_torch.utils.profiling import named_scope
 
 
 def bucket_length(n: int, quantum: int = 16384) -> int:
@@ -183,10 +192,11 @@ def dtw_rescore_batched(binary, valid_frames, scores, times, ids,
 
 def stage_marker(marks: list | None):
     """``mark(name)``: append a CUDA event recorded now, under ``name``,
-    to ``marks`` (a no-op when ``marks`` is None)."""
+    to ``marks`` (a no-op when ``marks`` is None).  The records delimit
+    the step's stages in a device trace; the events take no time."""
     def mark(name):
         if marks is not None:
-            ev_ = torch.cuda.Event(enable_timing=True)
+            ev_ = torch.cuda.Event()
             ev_.record()
             marks.append((name, ev_))
     return mark
@@ -223,8 +233,8 @@ def scan_step(
     ``(W, c)`` runs the f32 conv (``score_backend="conv"``).  ``dtw``:
     rescore the peaks (config 4).  ``plain=True`` runs every
     kernel's plain PyTorch version.  ``marks`` (CUDA only): a list that
-    receives a recorded CUDA event after each stage, for device-time
-    accounting."""
+    receives a recorded CUDA event at the start and after each stage,
+    which a device trace reads as the stages' boundaries."""
     mark = stage_marker(marks)
     fm = step_frontend(wavs, valid_samples, fcfg, mark, plain=plain)
     mark("frontend")
@@ -368,7 +378,6 @@ def stream_scan(
     pending: dict[int, list] = {}       # pad_samples -> [(gidx, wav or length)]
     open_grp: list = []                 # batches run, not yet in a fetch
     inflight = collections.deque()      # fetches started, not yet read
-    device_ms = collections.defaultdict(float)
     total_samples = 0
     n_batches = 0
     n_loaded = 0
@@ -404,19 +413,20 @@ def stream_scan(
                 b_eff *= 2
             b_eff = min(b_eff, batch_size)
         dt = torch.int16 if upload_i16 else torch.float32
-        wavs = torch.zeros((b_eff, pad), dtype=dt, pin_memory=cuda)
-        vs = torch.zeros((b_eff,), dtype=torch.int32, pin_memory=cuda)
-        w_np, v_np = wavs.numpy(), vs.numpy()
-        for row, (g, payload) in enumerate(items):
-            n = length(payload)
-            v_np[row] = n
-            if lazy:
-                if row not in local_rows:
-                    continue
-                payload = corpus.get_waveform(g)
-            w_np[row, :n] = _pcm16(payload) if upload_i16 else payload
-        marks = [] if cuda else None
-        s, t, k = compute(*feed(wavs, vs), marks)
+        with named_scope("stream.stage"):
+            wavs = torch.zeros((b_eff, pad), dtype=dt, pin_memory=cuda)
+            vs = torch.zeros((b_eff,), dtype=torch.int32, pin_memory=cuda)
+            w_np, v_np = wavs.numpy(), vs.numpy()
+            for row, (g, payload) in enumerate(items):
+                n = length(payload)
+                v_np[row] = n
+                if lazy:
+                    if row not in local_rows:
+                        continue
+                    payload = corpus.get_waveform(g)
+                w_np[row, :n] = _pcm16(payload) if upload_i16 else payload
+        stats.add("staging_bytes", wavs.nbytes + vs.nbytes)
+        s, t, k = compute(*feed(wavs, vs), [] if cuda else None)
         if batch_counter_fn is not None:
             for name, val in batch_counter_fn(pad).items():
                 stats.add(name, val)
@@ -424,7 +434,7 @@ def stream_scan(
         # packed [3, B, top-K] array a batch, left on the device
         packed = torch.stack([s, t.to(torch.float32), k.to(torch.float32)])
         return (sid, [g for g, _w in items], [length(w) for _g, w in items], b_eff,
-                packed, marks, (wavs, vs))
+                packed, (wavs, vs))
 
     def start_fetch():
         """Pack the open group's triples into one array (zero-padded to
@@ -446,35 +456,38 @@ def stream_scan(
         done = None
         if cuda and fetch is None:
             host = torch.empty(arr.shape, dtype=torch.float32, pin_memory=True)
+            stats.add("staging_bytes", host.nbytes)
             host.copy_(arr, non_blocking=True)
             done = torch.cuda.Event()
             done.record()
         else:
             host = arr
-        metas = [(sid, g, lens, b_eff, packed.shape[2], marks, keep)
-                 for sid, g, lens, b_eff, packed, marks, keep in open_grp]
+        metas = [(sid, g, lens, b_eff, packed.shape[2], keep)
+                 for sid, g, lens, b_eff, packed, keep in open_grp]
         inflight.append((metas, host, done))
         open_grp.clear()
         n_fetches += 1
 
     def drain(flight):
         metas, host, done = flight
-        if done is not None:
-            done.synchronize()
-        # a gathered fetch holds every rank's rows: b_eff of them a batch
-        a = fetch(host) if fetch is not None else host.numpy()
-        for i, (sid, gidxs, lens, b, kb, marks, _keep_alive) in enumerate(metas):
-            for (_n0, e0), (name, e1) in zip(marks or [], (marks or [])[1:]):
-                device_ms[name] += e0.elapsed_time(e1)
-            s = np.asarray(a[i, 0, :b, :kb], np.float32)
-            t = a[i, 1, :b, :kb].astype(np.int32)
-            k = a[i, 2, :b, :kb].astype(np.int32)
-            if manifest is not None:
-                manifest.record(sid, {"s": s, "t": t, "k": k,
-                                      "gidx": np.asarray(gidxs, np.int64),
-                                      "ns": np.asarray(lens, np.int64)})
-            for row, g in enumerate(gidxs):
-                results[g] = (s[row], t[row], k[row])
+        # a gathered fetch holds every rank's rows: b_eff of them a batch;
+        # the gather is device work, so it runs outside the span
+        a = fetch(host) if fetch is not None else None
+        with named_scope("stream.drain"):
+            if done is not None:
+                done.synchronize()
+            if a is None:
+                a = host.numpy()
+            for i, (sid, gidxs, lens, b, kb, _keep_alive) in enumerate(metas):
+                s = np.asarray(a[i, 0, :b, :kb], np.float32)
+                t = a[i, 1, :b, :kb].astype(np.int32)
+                k = a[i, 2, :b, :kb].astype(np.int32)
+                if manifest is not None:
+                    manifest.record(sid, {"s": s, "t": t, "k": k,
+                                          "gidx": np.asarray(gidxs, np.int64),
+                                          "ns": np.asarray(lens, np.int64)})
+                for row, g in enumerate(gidxs):
+                    results[g] = (s[row], t[row], k[row])
 
     def submit(batch):
         open_grp.append(batch)
@@ -508,8 +521,13 @@ def stream_scan(
 
     shard_id = 0
     try:
-        source = corpus.iter_utterance_infos() if lazy else corpus.iter_utterances()
-        for gidx, (uid, payload, phones) in enumerate(source):
+        source = iter(corpus.iter_utterance_infos() if lazy else corpus.iter_utterances())
+        for gidx in itertools.count():
+            with named_scope("stream.next"):
+                item = next(source, None)
+            if item is None:
+                break
+            uid, payload, phones = item
             nf = length(payload)
             total_samples += nf
             utt_ids.append(uid)
@@ -556,9 +574,6 @@ def stream_scan(
     stats.add("audio_seconds", total_samples / corpus.sample_rate)
     stats.add("detections", float(len(dets.scores)))
     stats.add("windows_scored", stats.counters["frames"] * num_templates)
-    for name in STAGES:
-        if name in device_ms:
-            stats.add(f"device_ms_{name}", device_ms[name])
     counters = stats.to_dict()
     counters["audio_s_per_s"] = stats.rate("audio_seconds", "scan")
     stats.log(stage_name + " ")

@@ -4,9 +4,8 @@ Counterpart of ``template_speech_recognition_tpu.utils.profiling``:
 
 * ``profile_trace`` / ``named_scope`` -- ``torch.profiler`` around a
   region, with a Chrome trace written into a directory, and named ranges
-  for the pipeline's stages (a ``record_function`` range, which the
-  profiler records, and an NVTX range where CUDA is present, which
-  Nsight tools read);
+  (``record_function``) for the pipeline's stages and the streaming
+  scan's host phases, which cost one check when no profiler runs;
 * ``CostModel`` -- FLOPs and compulsory device-memory bytes of the hot
   ops from their shapes: hardware-independent, the reference's numbers
   exactly;
@@ -27,6 +26,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
 import time
 
@@ -83,20 +83,38 @@ def profile_trace(log_dir: str | None):
         os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
-@contextlib.contextmanager
+class _NoSpan(contextlib.nullcontext):
+    """``named_scope``'s span while no profiler runs: nothing on entry or
+    exit; as a decorator, a function that asks ``named_scope`` at each
+    call."""
+
+    def __init__(self, name: str):
+        super().__init__()
+        self.name = name
+
+    def __call__(self, fn):
+        @functools.wraps(fn)
+        def scoped(*args, **kwargs):
+            with named_scope(self.name):
+                return fn(*args, **kwargs)
+        return scoped
+
+
+_NO_SPANS: dict[str, _NoSpan] = {}
+
+
 def named_scope(name: str):
     """Name a region for traces; usable as a context or a decorator.
-    Opens a ``record_function`` range and, where CUDA is present, an
-    NVTX range of the same name."""
-    nvtx = torch.cuda.is_available()
-    with record_function(name):
-        if nvtx:
-            torch.cuda.nvtx.range_push(name)
-        try:
-            yield
-        finally:
-            if nvtx:
-                torch.cuda.nvtx.range_pop()
+    Under a profiler, a ``record_function`` range; otherwise one shared
+    null context a name, so a span costs one check when nothing traces.
+    A decorator made while no profiler runs (at import) asks at each
+    call."""
+    if torch.autograd._profiler_enabled():
+        return record_function(name)
+    span = _NO_SPANS.get(name)
+    if span is None:
+        span = _NO_SPANS[name] = _NoSpan(name)
+    return span
 
 
 @dataclasses.dataclass(frozen=True)

@@ -124,6 +124,34 @@ def test_named_scope_as_context_and_decorator(tmp_path):
     assert {"context_stage", "decorated_stage"} <= _trace_names(str(tmp_path))
 
 
+def test_named_scope_without_a_profiler_opens_no_range(monkeypatch):
+    """With no profiler running, ``named_scope`` never calls
+    ``record_function``, as a context or a decorator, and gives one
+    shared null context a name; under one it does."""
+    from torch.profiler import ProfilerActivity, profile
+
+    opened = []
+
+    def spy(name):
+        opened.append(name)
+        return torch.profiler.record_function(name)
+
+    monkeypatch.setattr(tprof, "record_function", spy)
+
+    @tprof.named_scope("decorated_stage")
+    def work(x):
+        return x + 1
+
+    with tprof.named_scope("context_stage"):
+        assert work(1) == 2
+    assert tprof.named_scope("context_stage") is tprof.named_scope("context_stage")
+    assert opened == []
+    with profile(activities=[ProfilerActivity.CPU]):
+        with tprof.named_scope("context_stage"):
+            assert work(1) == 2
+    assert opened == ["context_stage", "decorated_stage"]
+
+
 def test_profile_trace_none_is_a_no_op(tmp_path):
     with tprof.profile_trace(None) as prof:
         x = torch.arange(4).sum()
